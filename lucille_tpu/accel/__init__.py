@@ -1,21 +1,18 @@
 """Acceleration structures and intersection kernels.
 
-TPU-native replacement for lucille's accel layer (src/render/accel.c
+JAX replacement for lucille's accel layer (src/render/accel.c
 vtable, src/render/bvh.c SAH-binned BVH, src/render/ugrid.c — SURVEY.md
-section 2.4).  Two interchangeable intersectors, mirroring the reference's
-``ri_accel_bind(RI_ACCEL_UGRID | RI_ACCEL_BVH)`` (accel.c:70-107):
+section 2.4).  Interchangeable intersectors, mirroring the reference's
+``ri_accel_bind(RI_ACCEL_UGRID | RI_ACCEL_BVH)`` (accel.c:70-107); the
+scene's ``accel`` tag picks one (accel/dispatch.py lists them):
 
 - ``bruteforce``: dense Moller-Trumbore over every (ray, triangle) pair in
-  lane-aligned chunks — pure VPU work with zero divergence; the fastest
-  choice for small scenes on TPU and the correctness oracle for the BVH.
-  (The reference's grid is a stub — ugrid.c:376-385 — so BVH+bruteforce is
-  a strictly more functional pairing.)
-- ``pbvh``: host binned-SAH build (bvh.c:1329 semantics) flattened to a
-  skip-link (DFS escape-index) layout over 128-triangle tiles; traversal
-  is a Pallas kernel — scalar while-loop over nodes in SMEM, dense
-  (tile, lane) VPU tests at leaves (accel/pallas_bvh.py).  Per-ray
-  gathered traversal survives only as the visualizer's diagnostics path
-  (accel/traverse.py).
+  chunks — regular elementwise work with zero divergence; the correctness
+  oracle for every other intersector.  (The reference's grid is a stub —
+  ugrid.c:376-385.)
+- ``pallas`` / ``pbvh``: Triton-route Pallas kernels — dense tile-culled
+  tests for small scenes (accel/pallas_isect.py, pallas_ao.py), packet
+  walks over a tile BVH for large ones (accel/pallas_bvh.py).
 """
 
 from lucille_tpu.accel.bvh import BVH, build_bvh

@@ -1,8 +1,8 @@
 """Dense Moller-Trumbore intersection: every ray against every triangle.
 
-The TPU-first intersector for small-to-medium scenes and the correctness
-oracle for the BVH (SURVEY.md section 7 step 3).  The (B rays x N tris)
-test grid is perfectly regular VPU work — no divergence, no gathers — so
+The plain intersector for small scenes and the correctness oracle for
+every other one (SURVEY.md section 7 step 3).  The (B rays x N tris)
+test grid is perfectly regular elementwise work — no divergence, no gathers — so
 XLA fuses the whole Moller-Trumbore chain (bvh.c:731-791 semantics:
 non-culling, |det| > eps, u,v in [0,1], u+v <= 1, 0 < t < t_best) into a
 streamed scan over triangle chunks.
@@ -104,7 +104,9 @@ def brute_closest_hit(scene, org, dirn, tmax=None, tmin: float = 0.0):
         "v": v,
         "tri": tri,
         "hit": hit,
-        "ntests": B * scene.n_tris,  # static: dense grid, host-side count
+        # static: dense grid, host-side count (float: B x N overflows
+        # int32 on large scenes)
+        "ntests": float(B) * scene.n_tris,
         "ntrav": 0,
     }
 

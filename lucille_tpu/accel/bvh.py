@@ -3,7 +3,7 @@
 Capability-equivalent to the reference's builder (src/render/bvh.c:
 ``bvh_construct`` recursive binned build bvh.c:1329, SAH bin edges
 bvh.c:1572, min-cost cut bvh.c:1231, surface-area metric bvh.c:1191), but
-the output is designed for TPU traversal instead of pointer chasing:
+the output is designed for wavefront traversal instead of pointer chasing:
 
 - nodes are emitted in depth-first order into flat SoA arrays;
 - every node stores a **skip link** — the index of the next node in DFS

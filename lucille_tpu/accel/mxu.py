@@ -1,8 +1,8 @@
-"""Moller-Trumbore on the MXU: ray-triangle intersection as matmul.
+"""Moller-Trumbore as a matmul: ray-triangle intersection through
+dot_general (the accel tag and module name "mxu" are historical).
 
-THE TPU-first redesign of the intersection core (SURVEY.md design
-mapping: "triangle tests vectorized" — here they land on the 128x128
-systolic array instead of the VPU).
+The CPU test mesh's default intersector, and one of the plain XLA
+versions the Triton kernels are measured against (PERF.md).
 
 Derivation: for ray (o, d) and triangle (v0, e1, e2) with ng = e1 x e2,
 Moller-Trumbore's quantities are scalar triple products, each TRILINEAR
@@ -24,11 +24,9 @@ and the per-triangle coefficient columns
           [(e1 x v0), -e1, 0, 0], [0, 0, ng, -v0.ng] ]   (10, 4C)
 
 gives ALL FOUR quantities for a whole triangle chunk as ONE matmul
-F @ W -> (B, 4C): pure MXU work at f32 accumulation, followed by a tiny
-VPU epilogue (divide, window tests, argmin reduction).  Arithmetic
-intensity rises from ~45 VPU flops/test to 80 MXU flops/test — a >10x
-throughput win on hardware where the MXU dominates (the design brief's
-"matmuls are where the FLOPs are").
+F @ W -> (B, 4C) at f32 accumulation, followed by a small elementwise
+epilogue (divide, window tests, argmin reduction).  The (B, 4C) product
+goes through device memory before the epilogue reads it.
 
 The chunk loop is a lax.scan (bounded memory); W is precomputed once per
 scene on device ("compile" step) and cached on the SceneArrays via the
@@ -121,11 +119,10 @@ def mxu_closest_hit(scene, org, dirn, tmax=None, tmin: float = 0.0, W=None):
     def step(carry, chunk):
         t_best, u_best, v_best, tri_best = carry
         Wc, base = chunk
-        # THE matmul: (B, 10) @ (10, 4C) on the MXU, f32 accumulation
-        # HIGHEST precision: default MXU precision rounds inputs to
-        # bf16, which visibly distorts hit geometry (observed on-TPU:
-        # AO mean 0.27 vs 0.40).  bf16x6 ('highest') restores f32-quality
-        # results while staying on the systolic array.
+        # THE matmul: (B, 10) @ (10, 4C), f32 accumulation.  HIGHEST
+        # precision: a reduced-precision f32 matmul (bf16 passes, or TF32
+        # on a GPU) visibly distorts hit geometry — triple products of
+        # scene coordinates cancel catastrophically.
         quad = jax.lax.dot_general(
             F,
             Wc,
@@ -184,10 +181,7 @@ def mxu_any_hit(scene, org, dirn, tmax=None, tmin: float = 0.0, W=None):
     tcap = _tcap(B, tmax)
 
     def step(occluded, Wc):
-        # HIGHEST precision: default MXU precision rounds inputs to
-        # bf16, which visibly distorts hit geometry (observed on-TPU:
-        # AO mean 0.27 vs 0.40).  bf16x6 ('highest') restores f32-quality
-        # results while staying on the systolic array.
+        # HIGHEST precision: see mxu_closest_hit.
         quad = jax.lax.dot_general(
             F,
             Wc,

@@ -1,65 +1,43 @@
-"""Pallas TPU megakernel: fused ambient-occlusion gather.
+"""Pallas kernel (Triton route): fused ambient-occlusion gather.
 
 The AO integrator's hot phase traces ``ntheta*nphi`` stratified
-hemisphere rays per primary hit (ambientocclusion.c:43-150).  The
-wavefront formulation runs that as a `lax.scan` of occlusion queries —
-one Pallas launch per stratum, each re-streaming the triangle SoA from
-HBM and bouncing the (8, B) ray buffers through HBM between steps.
+hemisphere rays per primary hit (ambientocclusion.c:43-150).  The plain
+formulation runs that as a `lax.scan` of occlusion queries, one per
+stratum, each streaming every triangle and writing the (ray, stratum)
+directions to device memory.  This kernel fuses the whole gather:
 
-This kernel fuses the WHOLE gather loop.  Its shape comes from four
-measured bottlenecks (each version was profiled on TPU v5e):
+1. **Hit compaction.**  About half the eye rays miss the scene; the
+   wrapper moves hit lanes to the front (a stable partition, or on
+   larger scenes a sort by normal octant and origin Morton cell so a
+   program's lanes share nearby origins and similar hemispheres) and
+   programs wholly past the hit count skip all work.  Results scatter
+   back to raster order afterwards.
+2. **Directions in registers.**  Each stratum's direction is generated
+   inside the strata loop from the shading basis and the per-lane jitter
+   (the stratified ``cos_theta = sqrt((i+u)/n)`` sampling of
+   ambientocclusion.c:85-110); no per-stratum ray buffer exists.
+   Per-stratum randomness is Cranley-Patterson rotation: each lane draws
+   two uniforms (indexed by compacted position) and stratum s shifts
+   them by the additive-recurrence (R2) sequence ``frac(u + frac(s *
+   alpha_k))`` — the generalized-Hammersley flavour of the reference's
+   QMC sampler (qmc.c:380-428).
+3. **Culled tiles, early exit.**  Per stratum the program walks the
+   triangle tiles; a tile whose AABB none of the program's still
+   unoccluded rays can reach is skipped, and the walk ends once every
+   live ray is occluded.
+4. **Signed-volume (triple-product) test.**  Occlusion needs a boolean,
+   not (t, u, v): with pa, pb, pc the vertex offsets from the origin,
+   ``U = d.(pb x pc)``, ``V = d.(pc x pa)``, ``W = d.n - U - V``; the ray
+   hits iff U, V, W share a sign and ``(pa.n) (d.n) > 0``.  No division.
 
-1. **Triangles stay VMEM-resident** across *all* strata — one HBM read
-   per ray block instead of ``nsamples``.
-2. **Hit compaction.** Typically ~half the eye rays miss the scene
-   (0.41 hit rate on the bundled ambient_occlusion.rib); the gather is
-   pure wasted VPU work on those lanes.  The wrapper stable-partitions
-   hit lanes to the front (two cumsums + a scatter — no sort) and the
-   kernel skips whole ray blocks past the live count via a scalar
-   `pl.when` guard, so dead blocks cost one DMA, not nsamples x Npad
-   triangle tests.  Results scatter back to raster order afterwards.
-3. **Signed-volume (triple-product) occlusion test.**  An any-hit
-   query doesn't need t/u/v values, only a boolean — so instead of the
-   Moller-Trumbore solve (whose division is the most expensive VPU op
-   in the loop), each stratum evaluates the three triple products
-   ``U = d.(pb x pc), V = d.(pc x pa), W = d.(pa x pb)`` against
-   origin-hoisted cross products: the ray hits iff U, V, W share a
-   sign and the plane distance has positive ray parameter
-   (``s_n * dn > 0``, with ``dn = U+V+W = d.n`` for free).  The
-   origin-only terms (pa/pb/pc, their crosses, ``s_n = pa.n``) hoist
-   out of the strata loop because an AO gather shares one origin per
-   primary hit.  ~26 VPU ops per (ray, triangle, stratum) vs ~48 for
-   hoisted MT with its divide.
-4. **Rays live in LANES, triangles in SUBLANES.**  The first fused
-   version kept (ray, triangle) tiles ray-major, which forced a
-   (1, RB) -> (RB, 1) cross-lane relayout of the direction row for
-   every (stratum, tile) pair — ~576 relayouts per block that dominated
-   the kernel (13% VPU utilization).  With (TC, RB) tiles the
-   direction rows broadcast across sublanes natively: the inner loop
-   has NO transposes, and the per-triangle columns are transposed just
-   12x per tile when hoisting.
+Memory plan per program (RB rays):
+- rays: (16, RB) f32 rows [P_off | b0 | b1 | b2 | hit | pad*3];
+- jitter: (8, RB) f32 rows [u0 | u1 | pad*6];
+- triangles: (16, Npad) f32 rows [v0 | v1 | v2 | n] with n = e1 x e2,
+  streamed from device memory one (TC,) row slice at a time;
+- tile boxes: (8, n_tiles) f32.
 
-Hemisphere directions are generated inside the kernel from the shading
-basis + per-lane jitter (the stratified ``cos_theta = sqrt((i+u)/n)``
-sampling of ambientocclusion.c:85-110), so no per-stratum ray buffers
-ever exist in HBM.  Per-stratum randomness is Cranley-Patterson
-rotation: each lane draws TWO uniforms (indexed by compacted position),
-and stratum s shifts them by the additive-recurrence (R2/plastic) QMC
-sequence, ``frac(u + frac(s * alpha_k))`` — the generalized-Hammersley
-flavor of the reference's own QMC sampler (qmc.c:380-428).  Unbiased
-per stratum, and it collapses the jitter stream from (2*nsamples, B)
-floats (265 MB per 518k-ray tile — profiled at ~25% of the pass) to
-(8, B).
-
-Memory plan per grid step (RAY_BLOCK rays):
-- rays: (16, RB) f32 — rows [P_off | b0 | b1 | b2 | hit | pad*3];
-- jitter: (8, RB) f32 — rows [u0 | u1 | pad*6];
-- tris: (16, Npad) f32 VMEM-resident, rows [v0|v1|v2|n] xyz with
-  n = e1 x e2 (Npad a multiple of 128 — the old MT kernel padded to
-  512, a 1.6x tax on the 322-triangle bundled scene);
-- scratch: 4x (nsamples, RB) f32 for directions + per-stratum flags.
-
-Interpret mode runs the identical kernel on CPU for the test suite.
+Interpret mode runs the same kernel on the CPU for the test suite.
 """
 
 from __future__ import annotations
@@ -68,371 +46,166 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-_VMEM = pltpu.VMEM
 
 from lucille_tpu.accel.bruteforce import DET_EPS
-from lucille_tpu.accel.pallas_isect import SUPER as _SUPER
+from lucille_tpu.accel.pallas_isect import (
+    TC,
+    any_lane,
+    bounded_inv,
+    live_block,
+    pack_boxes,
+    partition_order,
+    slab,
+    tile_cols,
+    triton_call,
+)
 
-# triangle tile height in the occlusion loop (sublane dimension); the
-# padded count wastes at most TC_OCC-1 triangles.  Sub-128 tiles
-# (sublane-major packs) were MEASURED and REJECTED in round 4 — 2-4x
-# the per-tile fixed cost outweighs the tighter cull boxes
-# (docs/performance.md has the sweep: TC=64/32 -> 69.8/49.4 on
-# plane_sphere vs 79.5 at 128).
-TC_OCC = 128
+TC_OCC = TC  # triangles per tile in the occlusion loop
 
-# rays per grid step — larger than the closest-hit kernel's block so the
-# fixed per-step cost (DMA issue, grid bookkeeping) amortizes; the
-# wrapper pads the wavefront up to a multiple (dead pad lanes compact to
-# the back and their blocks are skipped)
-AO_RAY_BLOCK = 256
+# rays per program; the wrapper pads the wavefront up to a multiple
+# (pad lanes carry hit=False, compact to the back and are skipped).
+# 64 measured best on an H100 for one 240x240x9 AO tile (pallas_isect.py)
+AO_RAY_BLOCK = 64
 
 # R2 additive-recurrence constants (plastic number alpha, alpha^2): the
-# per-stratum Cranley-Patterson shifts frac(s * A) — computable from a
-# loop-carried stratum index with one multiply
+# per-stratum Cranley-Patterson shifts frac(s * A)
 _R2_A1 = 0.7548776662466927
 _R2_A2 = 0.5698402909980532
 
-# VMEM budget gate: triangle matrix bytes that still leave room for the
-# (TC_OCC, RAY_BLOCK) hoisted cross-product tiles (~2 MB) inside ~16 MB.
-MAX_TRIS_FOR_MEGAKERNEL = 131072
+# from this many tiles on, hit lanes are sorted by (normal octant, origin
+# Morton cell) instead of a plain partition, so a program's rays are
+# coherent enough for the tile culls to bite (untuned)
+_SORT_MIN_TILES = 8
 
-# per-(tile, stratum) slab culling compiles in only for scenes with at
-# least this many triangle tiles — below it the conditionals cost more
-# than the skipped work (measured -20% on the 3-tile bench scene)
-_STRATUM_CULL_MIN_TILES = 8
 
-def _ao_kernel(
-    nact_ref,
-    rays_ref,
-    jit_ref,
-    boxes_ref,
-    sboxes_ref,
-    tris_ref,
-    occ_ref,
-    *rest,
-    n_tri_tiles,
-    n_super,
-    ntheta,
-    nphi,
-    tc=TC_OCC,
-    want_bits=False,
-):
+def stratum_direction(s, u0_lane, u1_lane, b0, b1, b2, ntheta, nphi):
+    """Direction of stratum s for every lane: CP-rotated R2 jitter on the
+    stratified cosine-weighted grid (ambientocclusion.c:85-110), rotated
+    into the (b0, b1, b2) frame (reflection.c:332-340).  b*: 3-tuples of
+    (RB,) rows.  The same arithmetic serves the kernel and its callers
+    that recompute the kernel's directions."""
+    sf = s.astype(jnp.float32)
+    sh0 = sf * _R2_A1
+    sh1 = sf * _R2_A2
+    u0 = u0_lane + (sh0 - jnp.floor(sh0))
+    u0 = u0 - jnp.floor(u0)
+    u1 = u1_lane + (sh1 - jnp.floor(sh1))
+    u1 = u1 - jnp.floor(u1)
+    # lax.rem/div: s >= 0, and jnp's floor semantics add selects that
+    # the Triton lowering mistypes
+    fi = jax.lax.rem(s, ntheta).astype(jnp.float32)
+    fj = jax.lax.div(s, ntheta).astype(jnp.float32)
+    z0 = (fi + u0) * (1.0 / ntheta)
+    z1 = (fj + u1) * (1.0 / nphi)
+    cos_t = jnp.sqrt(z0)
+    phi = (2.0 * jnp.pi) * z1
+    lx = jnp.cos(phi) * cos_t
+    ly = jnp.sin(phi) * cos_t
+    lz = jnp.sqrt(jnp.maximum(1.0 - z0, 0.0))
+    return tuple(
+        lx * b0[k] + ly * b1[k] + lz * b2[k] for k in range(3)
+    )
+
+
+def _ao_kernel(nact_ref, rays_ref, jit_ref, boxes_ref, tris_ref, occ_ref,
+               *bits_refs, n_tiles, ntheta, nphi):
+    """Occlusion counts (and optionally per-stratum bits) for RB lanes."""
     nsamples = ntheta * nphi
-    rb = rays_ref.shape[1]
-    if want_bits:
-        # second OUTPUT: per-stratum occlusion bitmask, 32 strata per i32
-        # row (the sunsky-AO gather needs per-ray visibility, not just
-        # the count — ambientocclusion.c:154-332 accumulates sky radiance
-        # along each unoccluded stratum)
-        bits_ref, *rest = rest
-        n_bit_rows = bits_ref.shape[0]
-        bits_ref[:, :] = jnp.zeros((n_bit_rows, rb), jnp.int32)
-    else:
-        bits_ref = None
-    (wx_ref, wy_ref, wz_ref, flag_ref, ix_ref, iy_ref, iz_ref) = rest
-    # batched per-stratum culls (r5): ALL nsamples slab tests for a tile
-    # run as one (nsamples, RB) matrix computation whose per-stratum
-    # "any lane reaches" bits pack into ceil(nsamples/22) vector->scalar
-    # syncs — engaged from 2 tiles (the r4 per-stratum design cost one
-    # ~90 cy sync per (tile, stratum) and only paid off past 8 tiles;
-    # its two-level stratum-GROUP variant is superseded and recorded in
-    # docs/performance.md)
-    cull_on = n_tri_tiles >= 4
-    PACK_BITS = 22  # 2^22 summands stay exact in f32
+    rb = occ_ref.shape[0]
+    ox, oy, oz = (rays_ref[k, :] for k in range(3))
+    b0 = tuple(rays_ref[3 + k, :] for k in range(3))
+    b1 = tuple(rays_ref[6 + k, :] for k in range(3))
+    b2 = tuple(rays_ref[9 + k, :] for k in range(3))
+    hit = rays_ref[12, :] > 0.5
+    u0_lane = jit_ref[0, :]
+    u1_lane = jit_ref[1, :]
+    n_bit_rows = -(-nsamples // 32)
+    # programs holding no hit lane (compaction) trace no stratum
+    live_strata = live_block(nact_ref, rb) * nsamples
 
-    # inactive blocks (compaction moved every live lane below nact) write
-    # zeros and skip all compute; their DMA cost is negligible
-    occ_ref[:, :] = jnp.zeros((1, rb), jnp.float32)
-    active = pl.program_id(0) * rb < nact_ref[0]
+    def stratum(s, carry):
+        occ, bits = carry[0], carry[1:]
+        dx, dy, dz = stratum_direction(
+            s, u0_lane, u1_lane, b0, b1, b2, ntheta, nphi
+        )
+        ivx, ivy, ivz = bounded_inv(dx), bounded_inv(dy), bounded_inv(dz)
 
-    @pl.when(active)
-    def _body():
-        b0x = rays_ref[3:4, :]
-        b0y = rays_ref[4:5, :]
-        b0z = rays_ref[5:6, :]
-        b1x = rays_ref[6:7, :]
-        b1y = rays_ref[7:8, :]
-        b1z = rays_ref[8:9, :]
-        b2x = rays_ref[9:10, :]
-        b2y = rays_ref[10:11, :]
-        b2z = rays_ref[11:12, :]
+        def tcond(c):
+            i, o = c
+            return (i < n_tiles) & any_lane(hit & (o == 0))
 
-        u0_lane = jit_ref[0:1, :]  # (1, RB) per-lane CP-rotation bases
-        u1_lane = jit_ref[1:2, :]
+        def tbody(c):
+            i, o = c
+            tn, tf = slab(boxes_ref, i, ox, oy, oz, ivx, ivy, ivz)
+            reach = (tn <= tf) & (tf > 0.0) & hit & (o == 0)
 
-        # ---- phase 1: stratified hemisphere directions into VMEM scratch
-        # (ambientocclusion.c:85-110; basis rotation reflection.c:332-340);
-        # per-stratum jitter = Cranley-Patterson rotation of the lane pair
-        # by the R2 sequence (qmc.c:380-428 flavor)
-        def gen(s, _):
-            sf = s.astype(jnp.float32)
-            sh0 = sf * _R2_A1
-            sh1 = sf * _R2_A2
-            u0 = u0_lane + (sh0 - jnp.floor(sh0))
-            u0 = u0 - jnp.floor(u0)
-            u1 = u1_lane + (sh1 - jnp.floor(sh1))
-            u1 = u1 - jnp.floor(u1)
-            fi = (s % ntheta).astype(jnp.float32)
-            fj = (s // ntheta).astype(jnp.float32)
-            z0 = (fi + u0) * (1.0 / ntheta)
-            z1 = (fj + u1) * (1.0 / nphi)
-            cos_t = jnp.sqrt(z0)
-            phi = (2.0 * jnp.pi) * z1
-            lx = jnp.cos(phi) * cos_t
-            ly = jnp.sin(phi) * cos_t
-            lz = jnp.sqrt(jnp.maximum(1.0 - z0, 0.0))
-            wx = lx * b0x + ly * b1x + lz * b2x
-            wy = lx * b0y + ly * b1y + lz * b2y
-            wz = lx * b0z + ly * b1z + lz * b2z
-            wx_ref[pl.ds(s, 1), :] = wx
-            wy_ref[pl.ds(s, 1), :] = wy
-            wz_ref[pl.ds(s, 1), :] = wz
-            if cull_on:
-                # bounded reciprocals for the batched slab culls
-                ix_ref[pl.ds(s, 1), :] = (
-                    1.0 / jnp.where(jnp.abs(wx) > 1e-20, wx, 1e-20)
-                )
-                iy_ref[pl.ds(s, 1), :] = (
-                    1.0 / jnp.where(jnp.abs(wy) > 1e-20, wy, 1e-20)
-                )
-                iz_ref[pl.ds(s, 1), :] = (
-                    1.0 / jnp.where(jnp.abs(wz) > 1e-20, wz, 1e-20)
-                )
-            flag_ref[pl.ds(s, 1), :] = jnp.zeros((1, rb), jnp.float32)
-            return 0
-
-        jax.lax.fori_loop(0, nsamples, gen, 0)
-
-        ox = rays_ref[0:1, :]  # (1, RB) — rays stay in lanes throughout
-        oy = rays_ref[1:2, :]
-        oz = rays_ref[2:3, :]
-
-        # ---- phase 2: triangle tiles outer (hoist all origin-only
-        # terms), strata inner (triple-product sign tests only).
-        # Everything is (TC, RB): triangles in sublanes, rays in lanes,
-        # so the per-stratum direction rows broadcast with no relayout.
-        # Tiles whose AABB lies entirely below every ray's tangent plane
-        # are skipped whole: hemisphere directions satisfy d.N >= 0, so a
-        # hit point always has (x - P).N >= 0 — if the bbox corner that
-        # maximizes (c - P).N is still negative for all lanes, no stratum
-        # of any lane can reach the tile (the wavefront analog of the
-        # reference's beam culling, bvh.c:2548-2830).
-        hit_row_m = rays_ref[12:13, :]
-
-        def tile_body(ti, _):
-            base = ti * tc
-            cx = jnp.where(b2x > 0, boxes_ref[3, ti], boxes_ref[0, ti])
-            cy = jnp.where(b2y > 0, boxes_ref[4, ti], boxes_ref[1, ti])
-            cz = jnp.where(b2z > 0, boxes_ref[5, ti], boxes_ref[2, ti])
-            above = (
-                (cx - rays_ref[0:1, :]) * b2x
-                + (cy - rays_ref[1:2, :]) * b2y
-                + (cz - rays_ref[2:3, :]) * b2z
-            ) >= 0.0
-            live = jnp.any(above & (hit_row_m > 0.5))
-
-            return jax.lax.cond(
-                live, lambda: _tile_work(ti, base), lambda: 0
-            )
-
-        def _tile_work(ti, base):
-            bminx = boxes_ref[0, ti]
-            bminy = boxes_ref[1, ti]
-            bminz = boxes_ref[2, ti]
-            bmaxx = boxes_ref[3, ti]
-            bmaxy = boxes_ref[4, ti]
-            bmaxz = boxes_ref[5, ti]
-            # (1, TC) row slices -> (TC, 1) columns, 12 transposes per
-            # tile (vs 3 per stratum per tile ray-major)
-            def col(r):
-                return tris_ref[r, pl.ds(base, tc)][:, None]
-            v0x = col(0)
-            v0y = col(1)
-            v0z = col(2)
-            v1x = col(3)
-            v1y = col(4)
-            v1z = col(5)
-            v2x = col(6)
-            v2y = col(7)
-            v2z = col(8)
-            nx = col(9)
-            ny = col(10)
-            nz = col(11)
-
-            # origin-only terms, once per (triangle, ray): vertex offsets,
-            # their pairwise cross products, and the plane distance sign
-            pax = v0x - ox  # (TC, RB)
-            pay = v0y - oy
-            paz = v0z - oz
-            pbx = v1x - ox
-            pby = v1y - oy
-            pbz = v1z - oz
-            pcx = v2x - ox
-            pcy = v2y - oy
-            pcz = v2z - oz
-            # cbc = pb x pc, cca = pc x pa, cab = pa x pb
-            cbcx = pby * pcz - pbz * pcy
-            cbcy = pbz * pcx - pbx * pcz
-            cbcz = pbx * pcy - pby * pcx
-            ccax = pcy * paz - pcz * pay
-            ccay = pcz * pax - pcx * paz
-            ccaz = pcx * pay - pcy * pax
-            s_n = pax * nx + pay * ny + paz * nz  # (A - o) . n
-
-            def _pair_work(s, prev):
-                dx = wx_ref[pl.ds(s, 1), :]  # (1, RB) — no transpose
-                dy = wy_ref[pl.ds(s, 1), :]
-                dz = wz_ref[pl.ds(s, 1), :]
+            def test():
+                (v0x, v0y, v0z, v1x, v1y, v1z, v2x, v2y, v2z,
+                 nx, ny, nz) = tile_cols(tris_ref, i * TC_OCC, TC_OCC,
+                                         range(12))
+                pax = v0x - ox  # (TC, RB) origin offsets
+                pay = v0y - oy
+                paz = v0z - oz
+                pbx = v1x - ox
+                pby = v1y - oy
+                pbz = v1z - oz
+                pcx = v2x - ox
+                pcy = v2y - oy
+                pcz = v2z - oz
+                # cbc = pb x pc, cca = pc x pa
+                cbcx = pby * pcz - pbz * pcy
+                cbcy = pbz * pcx - pbx * pcz
+                cbcz = pbx * pcy - pby * pcx
+                ccax = pcy * paz - pcz * pay
+                ccay = pcz * pax - pcx * paz
+                ccaz = pcx * pay - pcy * pax
+                s_n = pax * nx + pay * ny + paz * nz  # (A - o) . n
                 U = dx * cbcx + dy * cbcy + dz * cbcz
                 V = dx * ccax + dy * ccay + dz * ccaz
                 dn = dx * nx + dy * ny + dz * nz  # d.n (MT det, negated)
-                # U + V + W = dn, so the third triple product is free
-                W = dn - U - V
+                W = dn - U - V  # U + V + W = d.n
                 inside = (jnp.minimum(jnp.minimum(U, V), W) >= 0.0) | (
                     jnp.maximum(jnp.maximum(U, V), W) <= 0.0
                 )
                 # t = s_n/dn > 0 without the division; DET_EPS keeps the
                 # reference's degenerate-det rejection (bvh.c:746)
-                hit = inside & (s_n * dn > 0.0) & (jnp.abs(dn) > DET_EPS)
-                any1 = jnp.any(hit, axis=0, keepdims=True)  # (1, RB)
-                flag_ref[pl.ds(s, 1), :] = jnp.maximum(
-                    prev, any1.astype(jnp.float32)
-                )
+                h = inside & (s_n * dn > 0.0) & (jnp.abs(dn) > DET_EPS)
+                return o | jnp.max(h.astype(jnp.int32), axis=0)
 
-            def strat(s, _):
-                prev = flag_ref[pl.ds(s, 1), :]
-                if not cull_on:
-                    _pair_work(s, prev)
-                    return 0
-                # gate: this stratum's packed cull bit (computed for the
-                # whole tile below, zero extra syncs here)
-                c = s // PACK_BITS
-                bit = s - c * PACK_BITS
-                sel = packs[0]
-                for ci in range(1, len(packs)):
-                    sel = jnp.where(c == ci, packs[ci], sel)
-                gate = ((sel >> bit) & 1) > 0
+            o = jax.lax.cond(any_lane(reach), test, lambda: o)
+            return i + 1, o
 
-                @pl.when(gate)
-                def _pair():
-                    _pair_work(s, prev)
+        _, o = jax.lax.while_loop(
+            tcond, tbody, (jnp.int32(0), jnp.zeros((rb,), jnp.int32))
+        )
+        o = o & hit.astype(jnp.int32)
+        # stratum s sets bit s % 32 of bit row s // 32
+        new_bits = tuple(
+            bits[r]
+            | ((o * (jax.lax.div(s, 32) == r).astype(jnp.int32))
+               << jnp.clip(s - 32 * r, 0, 31))
+            for r in range(len(bits))
+        )
+        return (occ + o.astype(jnp.float32), *new_bits)
 
-                return 0
-
-            if not cull_on:
-                jax.lax.fori_loop(0, nsamples, strat, 0)
-                return 0
-
-            # ---- batched per-stratum culls: one (nsamples, RB) slab
-            # test against the tile bbox decides every stratum's pair
-            # work at once.  Sublane-parallel rows make the matrix form
-            # ~GS x cheaper per stratum than the r4 row-at-a-time culls,
-            # and the per-stratum "any lane reaches" column packs into
-            # ceil(nsamples/22) scalar syncs instead of one per stratum
-            # (exact: each packed sum adds distinct powers of two,
-            # bounded by 2^22, within f32's 24-bit mantissa).  Occlusion
-            # early-out: flags are read at tile entry, so strata whose
-            # every live lane occluded on an EARLIER tile drop out; the
-            # within-tile update the serial sweep had is given up for
-            # the sync savings.
-            ivx = ix_ref[:, :]  # (nsamples, RB)
-            ivy = iy_ref[:, :]
-            ivz = iz_ref[:, :]
-            t0x = (bminx - ox) * ivx
-            t1x = (bmaxx - ox) * ivx
-            t0y = (bminy - oy) * ivy
-            t1y = (bmaxy - oy) * ivy
-            t0z = (bminz - oz) * ivz
-            t1z = (bmaxz - oz) * ivz
-            tn = jnp.maximum(
-                jnp.maximum(jnp.minimum(t0x, t1x), jnp.minimum(t0y, t1y)),
-                jnp.minimum(t0z, t1z),
-            )
-            tf = jnp.minimum(
-                jnp.minimum(jnp.maximum(t0x, t1x), jnp.maximum(t0y, t1y)),
-                jnp.maximum(t0z, t1z),
-            )
-            reach = (
-                (tn <= tf)
-                & (tf > 0.0)
-                & (flag_ref[:, :] < 0.5)
-                & (hit_row_m > 0.5)
-            )
-            anyrow = jnp.any(reach, axis=1, keepdims=True)  # (nsamples, 1)
-            af = anyrow.astype(jnp.float32)
-            iota = jax.lax.broadcasted_iota(jnp.int32, (nsamples, 1), 0)
-            packs = []
-            for lo in range(0, nsamples, PACK_BITS):
-                hi = min(lo + PACK_BITS, nsamples)
-                w = jnp.where(
-                    (iota >= lo) & (iota < hi),
-                    (jnp.int32(1) << (iota - lo)).astype(jnp.float32),
-                    0.0,
-                )
-                packs.append(jnp.sum(af * w).astype(jnp.int32))
-
-            jax.lax.fori_loop(0, nsamples, strat, 0)
-            return 0
-
-        if n_super > 1:
-            # supertile level: one tangent-plane test covers 16 tiles —
-            # on a 131k-triangle scene this guards 1024 tiles' worth of
-            # per-tile and per-stratum cull arithmetic
-            def super_body(si, _):
-                scx = jnp.where(b2x > 0, sboxes_ref[3, si], sboxes_ref[0, si])
-                scy = jnp.where(b2y > 0, sboxes_ref[4, si], sboxes_ref[1, si])
-                scz = jnp.where(b2z > 0, sboxes_ref[5, si], sboxes_ref[2, si])
-                above = (
-                    (scx - rays_ref[0:1, :]) * b2x
-                    + (scy - rays_ref[1:2, :]) * b2y
-                    + (scz - rays_ref[2:3, :]) * b2z
-                ) >= 0.0
-                live = jnp.any(above & (hit_row_m > 0.5))
-
-                @pl.when(live)
-                def _super():
-                    lo = si * _SUPER
-                    hi = jnp.minimum(lo + _SUPER, n_tri_tiles)
-                    jax.lax.fori_loop(lo, hi, tile_body, 0)
-
-                return 0
-
-            jax.lax.fori_loop(0, n_super, super_body, 0)
-        else:
-            jax.lax.fori_loop(0, n_tri_tiles, tile_body, 0)
-
-        hit_row = rays_ref[12:13, :]  # primary-hit mask
-        occ_ref[:, :] = jnp.sum(flag_ref[:, :], axis=0, keepdims=True) * hit_row
-        if want_bits:
-            n_bit_rows = bits_ref.shape[0]
-            for r in range(n_bit_rows):  # static tiny unroll (<= 2 for 64)
-                lo = r * 32
-                hi = min(lo + 32, nsamples)
-
-                def packone(s, acc, lo=lo):
-                    b = (flag_ref[pl.ds(s, 1), :] > 0.5).astype(jnp.int32)
-                    # scalar dynamic shift, vector multiply (Mosaic-safe)
-                    return acc | (b * (jnp.int32(1) << (s - lo)))
-
-                acc = jax.lax.fori_loop(
-                    lo, hi, packone, jnp.zeros((1, rb), jnp.int32)
-                )
-                bits_ref[pl.ds(r, 1), :] = acc
+    n_carry_bits = n_bit_rows if bits_refs else 0
+    init = (jnp.zeros((rb,), jnp.float32),) + tuple(
+        jnp.zeros((rb,), jnp.int32) for _ in range(n_carry_bits)
+    )
+    out = jax.lax.fori_loop(0, live_strata, stratum, init)
+    occ_ref[:] = out[0]
+    if bits_refs:
+        for r in range(n_bit_rows):
+            bits_refs[0][r, :] = out[1 + r]
 
 
 def occlusion_test_reference(org, dirn, v0, v1, v2):
     """Plain-JAX mirror of the kernel's signed-volume any-hit test.
 
-    org, dirn: (B, 3); v0/v1/v2: (T, 3).  Returns (B,) bool.  Used by the
-    parity tests as the bit-exact oracle for the kernel's math (the MT
-    formulation agrees except within float rounding of the u/v/t
-    boundaries).
-    """
+    org, dirn: (B, 3); v0/v1/v2: (T, 3).  Returns (B,) bool.  The parity
+    tests' oracle for the kernel's math (the MT formulation agrees except
+    within float rounding of the u/v/t boundaries)."""
     pa = v0[None] - org[:, None]  # (B, T, 3)
     pb = v1[None] - org[:, None]
     pc = v2[None] - org[:, None]
@@ -441,7 +214,7 @@ def occlusion_test_reference(org, dirn, v0, v1, v2):
     U = jnp.sum(d * jnp.cross(pb, pc), axis=-1)
     V = jnp.sum(d * jnp.cross(pc, pa), axis=-1)
     dn = jnp.sum(d * n, axis=-1)
-    W = dn - U - V  # U + V + W = d.n, so the third product is free
+    W = dn - U - V
     s_n = jnp.sum(pa * n, axis=-1)
     inside = (jnp.minimum(jnp.minimum(U, V), W) >= 0.0) | (
         jnp.maximum(jnp.maximum(U, V), W) <= 0.0
@@ -462,16 +235,13 @@ def _spread3(x):
 def compaction_order(scene, P_off, b2, hit, n_tri_tiles):
     """Lane ordering for the compaction step.
 
-    Small scenes: stable hit-first partition (cheap, raster order kept).
-    Large scenes (the per-stratum culls are compiled in): live lanes are
-    additionally sorted by (shading-normal octant, Morton cell of the
-    shading point), so each 256-lane block sees nearby origins with
-    similar hemispheres — that coherence is what makes the block-level
-    `any` culls bite.  Deterministic: the key is a pure function of the
-    scene and hit data.  Returns (order, nhit)."""
-    if n_tri_tiles < _STRATUM_CULL_MIN_TILES:
+    Small scenes: stable hit-first partition (raster order kept).  From
+    _SORT_MIN_TILES tiles on: hit lanes sorted by (shading-normal octant,
+    Morton cell of the shading point), so each program sees nearby
+    origins with similar hemispheres — the coherence the tile culls live
+    on.  Deterministic.  Returns (order, nhit)."""
+    if n_tri_tiles < _SORT_MIN_TILES:
         return partition_order(hit)
-    B = hit.shape[0]
     ext = jnp.maximum(scene.bbox_max - scene.bbox_min, 1e-12)
     q = jnp.clip(
         ((P_off - scene.bbox_min) / ext * 256.0).astype(jnp.int32), 0, 255
@@ -489,30 +259,11 @@ def compaction_order(scene, P_off, b2, hit, n_tri_tiles):
     return order, jnp.sum(hit.astype(jnp.int32))
 
 
-def partition_order(hit):
-    """Stable partition of lane indices: hit lanes first, raster order
-    preserved within each class.  Returns (order, nhit): lane ``order[j]``
-    of the input occupies compacted slot ``j``.  Pure function of the hit
-    mask — the compacted jitter indexing stays deterministic."""
-    B = hit.shape[0]
-    hit_i = hit.astype(jnp.int32)
-    nhit = jnp.sum(hit_i)
-    pos = jnp.where(
-        hit, jnp.cumsum(hit_i) - 1, nhit + jnp.cumsum(1 - hit_i) - 1
-    )
-    order = (
-        jnp.zeros((B,), jnp.int32)
-        .at[pos]
-        .set(jnp.arange(B, dtype=jnp.int32))
-    )
-    return order, nhit
-
-
-def _pack_occ(scene, tc: int = TC_OCC):
+def pack_occ(scene, tc: int):
     """Scene SoA -> (16, Npad) f32 occlusion matrix, rows [v0|v1|v2|n].
 
-    Padding rows are all-zero triangles: every triple product vanishes,
-    `s_n * dn = 0` is not > 0, so pads can never occlude."""
+    Padding columns are all-zero triangles: every triple product
+    vanishes, `s_n * dn = 0` is not > 0, so pads never occlude."""
     n = scene.tri_v0.shape[0]
     npad = -(-n // tc) * tc
     v1 = scene.tri_v0 + scene.tri_e1
@@ -526,155 +277,123 @@ def _pack_occ(scene, tc: int = TC_OCC):
     return tris, npad
 
 
-def pallas_ao_occlusion(
-    scene,
-    P_off,
-    b0,
-    b1,
-    b2,
-    hit,
-    key,
-    ntheta: int,
-    nphi: int,
-    interpret: bool | None = None,
-):
+def pallas_ao_occlusion(scene, P_off, b0, b1, b2, hit, key, ntheta: int,
+                        nphi: int):
     """Occlusion counts for a wavefront of primary hits.
 
     P_off: (B, 3) eps-offset shading points; b0/b1/b2: (B, 3) ortho
     basis (b2 = shading normal); hit: (B,) primary-hit mask.  Returns
-    (B,) f32 — number of the ``ntheta*nphi`` stratified hemisphere rays
-    that are occluded (0 where ``hit`` is False).
-    """
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
+    (B,) f32 — how many of the ``ntheta*nphi`` stratified hemisphere rays
+    are occluded (0 where ``hit`` is False)."""
     occ, _bits, _u = _pallas_ao_occlusion(
-        scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, interpret,
-        TC_OCC, False,
+        scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, False
     )
     return occ
 
 
-def pallas_ao_occlusion_bits(
-    scene, P_off, b0, b1, b2, hit, key, ntheta: int, nphi: int,
-    interpret: bool | None = None,
-):
-    """Sunsky-AO entry: like pallas_ao_occlusion but ALSO returns
-    (bits (ceil(S/32), B) i32 raster-order per-stratum occlusion masks,
-    u01 (2, B) per-lane jitter) so the caller can recompute the exact
-    in-kernel stratified directions and weight each unoccluded stratum
-    by sky radiance (ambientocclusion.c:154-332, TPU-shaped)."""
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
+def pallas_ao_occlusion_bits(scene, P_off, b0, b1, b2, hit, key,
+                             ntheta: int, nphi: int):
+    """Like pallas_ao_occlusion, but also returns (bits (ceil(S/32), B)
+    i32 raster-order per-stratum occlusion masks, u01 (2, B) per-lane
+    jitter) so a caller can recompute the kernel's exact directions."""
     return _pallas_ao_occlusion(
-        scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, interpret,
-        TC_OCC, True,
+        scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, True
     )
 
 
-@partial(jax.jit,
-         static_argnames=("ntheta", "nphi", "interpret", "tc", "want_bits"))
-def _pallas_ao_occlusion(
-    scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, interpret, tc=TC_OCC,
-    want_bits=False,
-):
+def pallas_ao_sky(scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, sky):
+    """Sunsky-AO gather (ambientocclusion.c:154-332) through the fused
+    kernel's per-stratum bitmask: the directions are recomputed with the
+    kernel's own jitter and R2 rotation, so stratum s's visibility bit
+    pairs with exactly the direction the kernel traced, and each
+    unoccluded stratum adds the sky radiance along it.  Returns (B, 3)."""
+    _occ, bits, u01 = pallas_ao_occlusion_bits(
+        scene, P_off, b0, b1, b2, hit, key, ntheta, nphi
+    )
+    nsamples = ntheta * nphi
+    B = P_off.shape[0]
+    basis = tuple(tuple(b[:, k] for k in range(3)) for b in (b0, b1, b2))
+
+    def step(col, s):
+        wx, wy, wz = stratum_direction(s, u01[0], u01[1], *basis,
+                                       ntheta, nphi)
+        row = jax.lax.dynamic_index_in_dim(bits, s // 32, axis=0,
+                                           keepdims=False)
+        occluded = ((row >> (s % 32)) & 1) == 1
+        vis = (~occluded) & hit
+        # world (y-up) -> sky model (z-up): lightsource.c:152-158's swap
+        d_sky = jnp.stack([wx, wz, wy], axis=-1)
+        return col + vis[:, None] * sky.sky_rgb(d_sky), None
+
+    col, _ = jax.lax.scan(step, jnp.zeros((B, 3), jnp.float32),
+                          jnp.arange(nsamples, dtype=jnp.int32))
+    return col
+
+
+@partial(jax.jit, static_argnames=("ntheta", "nphi", "want_bits"))
+def _pallas_ao_occlusion(scene, P_off, b0, b1, b2, hit, key, ntheta, nphi,
+                         want_bits=False):
     B = P_off.shape[0]
     Bpad = -(-B // AO_RAY_BLOCK) * AO_RAY_BLOCK
     nsamples = ntheta * nphi
-    tris, npad = _pack_occ(scene, tc)
-    n_tri_tiles = npad // tc
+    tris, npad = pack_occ(scene, TC_OCC)
+    n_tiles = npad // TC_OCC
 
-    # ---- hit compaction: stable-partition live lanes to the front.
-    # Wavefront pad lanes (Bpad > B) carry hit=False, so they compact to
-    # the back and their whole blocks are skipped.
+    # hit compaction; wavefront pad lanes (Bpad > B) carry hit=False
     if Bpad != B:
         hit_w = jnp.zeros((Bpad,), hit.dtype).at[:B].set(hit)
         pad3 = lambda a: jnp.zeros((Bpad, 3), a.dtype).at[:B].set(a)
         P_off, b0, b1, b2 = pad3(P_off), pad3(b0), pad3(b1), pad3(b2)
     else:
         hit_w = hit
-    order, nhit = compaction_order(scene, P_off, b2, hit_w, n_tri_tiles)
+    order, nhit = compaction_order(scene, P_off, b2, hit_w, n_tiles)
 
-    # per-lane CP-rotation bases, indexed by COMPACTED position:
-    # i.i.d. uniforms, so the estimator is unchanged, and there is no
-    # (2*nsamples, B) column gather (profiled at ~the cost of the whole
-    # occlusion loop when keyed per raster lane)
-    # generated at width B (not Bpad) so the stream is independent of the
-    # block-padding amount; live lanes only ever read columns < nhit <= B
+    # per-lane CP-rotation bases, indexed by COMPACTED position: i.i.d.
+    # uniforms, so the estimator is unchanged.  Drawn at width B (not
+    # Bpad) so the stream does not depend on the block padding; live
+    # lanes only read columns < nhit <= B.
     jitter = jnp.zeros((8, Bpad), jnp.float32)
     jitter = jitter.at[0:2, :B].set(
         jax.random.uniform(key, (2, B), dtype=jnp.float32)
     )
 
-    hit_i = hit_w.astype(jnp.int32)
     rays = jnp.zeros((16, Bpad), jnp.float32)
     rays = rays.at[0:3].set(P_off[order].T)
     rays = rays.at[3:6].set(b0[order].T)
     rays = rays.at[6:9].set(b1[order].T)
     rays = rays.at[9:12].set(b2[order].T)
-    rays = rays.at[12].set(hit_i[order].astype(jnp.float32))
+    rays = rays.at[12].set(hit_w[order].astype(jnp.float32))
     nact = nhit.astype(jnp.int32).reshape((1,))
-
-    def spec(shape, index_map):
-        if _VMEM:
-            return pl.BlockSpec(shape, index_map, memory_space=_VMEM)
-        return pl.BlockSpec(shape, index_map)
-
-    grid = (Bpad // AO_RAY_BLOCK,)
-    from lucille_tpu.accel.pallas_isect import _pack_boxes, _pack_super_boxes
-
-    boxes = _pack_boxes(scene, npad, tc)
-    sboxes, n_super = _pack_super_boxes(boxes, n_tri_tiles)
-
-    kernel = partial(
-        _ao_kernel,
-        n_tri_tiles=n_tri_tiles,
-        n_super=n_super,
-        ntheta=ntheta,
-        nphi=nphi,
-        tc=tc,
-        want_bits=want_bits,
-    )
-    # wx/wy/wz directions, flags, reciprocal rows
-    scratch_shapes = [
-        pltpu.VMEM((nsamples, AO_RAY_BLOCK), jnp.float32)
-    ] * 7
+    boxes = pack_boxes(scene, npad, TC_OCC)
 
     n_bit_rows = -(-nsamples // 32)
-    out_specs = [spec((1, AO_RAY_BLOCK), lambda i: (0, i))]
-    out_shape = [jax.ShapeDtypeStruct((1, Bpad), jnp.float32)]
+    row = pl.BlockSpec((AO_RAY_BLOCK,), lambda i: (i,))
+    out_specs = [row]
+    out_shape = [jax.ShapeDtypeStruct((Bpad,), jnp.float32)]
     if want_bits:
-        out_specs.append(spec((n_bit_rows, AO_RAY_BLOCK), lambda i: (0, i)))
-        out_shape.append(
-            jax.ShapeDtypeStruct((n_bit_rows, Bpad), jnp.int32)
+        out_specs.append(
+            pl.BlockSpec((n_bit_rows, AO_RAY_BLOCK), lambda i: (0, i))
         )
+        out_shape.append(jax.ShapeDtypeStruct((n_bit_rows, Bpad), jnp.int32))
 
-    outs = pl.pallas_call(
-        kernel,
-        grid=grid,
+    outs = triton_call(
+        partial(_ao_kernel, n_tiles=n_tiles, ntheta=ntheta, nphi=nphi),
+        grid=(Bpad // AO_RAY_BLOCK,),
         in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            spec((16, AO_RAY_BLOCK), lambda i: (0, i)),
-            spec((8, AO_RAY_BLOCK), lambda i: (0, i)),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            spec((16, npad), lambda i: (0, 0)),
+            pl.BlockSpec((1,), lambda i: (0,)),
+            pl.BlockSpec((16, AO_RAY_BLOCK), lambda i: (0, i)),
+            pl.BlockSpec((8, AO_RAY_BLOCK), lambda i: (0, i)),
+            pl.BlockSpec(boxes.shape, lambda i: (0, 0)),
+            pl.BlockSpec(tris.shape, lambda i: (0, 0)),
         ],
-        out_specs=out_specs if want_bits else out_specs[0],
-        out_shape=out_shape if want_bits else out_shape[0],
-        scratch_shapes=scratch_shapes,
-        interpret=interpret,
-    )(nact, rays, jitter, boxes, sboxes, tris)
-    occ_sorted = outs[0] if want_bits else outs
-    # scatter occlusion counts back to raster order
-    occ = jnp.zeros((Bpad,), jnp.float32).at[order].set(occ_sorted[0])
+        out_specs=out_specs,
+        out_shape=out_shape,
+        name="lucille_ao_gather",
+    )(nact, rays, jitter, boxes, tris)
+    occ = jnp.zeros((Bpad,), jnp.float32).at[order].set(outs[0])
     if not want_bits:
         return occ[:B], None, None
-    bits_sorted = outs[1]
-    bits = (
-        jnp.zeros((n_bit_rows, Bpad), jnp.int32)
-        .at[:, order]
-        .set(bits_sorted)
-    )
+    bits = jnp.zeros((n_bit_rows, Bpad), jnp.int32).at[:, order].set(outs[1])
     # per-lane jitter back in raster order: compacted column j belongs to
     # raster lane order[j]
     u_r = jnp.zeros((2, Bpad), jnp.float32).at[:, order].set(jitter[0:2])

@@ -1,36 +1,26 @@
-"""Pallas TPU kernels: skip-link BVH traversal over triangle tiles.
+"""Pallas kernels (Triton route): packet walks over a tile BVH.
 
-The production accelerator for large scenes — the TPU-shaped counterpart
-of the reference's stack-based per-ray BVH walk (bvh.c:1093-1190).  A
-per-LANE gathered traversal is the wrong shape for a vector machine
-(measured ~8 Krays/s in round 1); this design keeps every vector op
-dense and moves ALL data-dependent control flow to scalars:
+The accelerator for large scenes, the counterpart of the reference's
+per-ray BVH walk (bvh.c:1093-1190) shaped for a wide machine:
 
 - **Hierarchy over tiles, not triangles.**  The host SAH build
-  (accel/bvh.py, same binned algorithm as bvh.c:1329) uses leaves of
-  one-or-more 128-triangle tiles; leaf ranges are padded to tile
-  boundaries so every leaf visit is an aligned (TC, RAY_BLOCK) VPU
-  tile test — the same dense test the megakernels use.
-- **One traversal per ray BLOCK (and per stratum for AO), not per
-  ray.**  The skip-link walk is a scalar `while_loop`: node bboxes live
-  in SMEM, the slab test is a ~30-op (1, RAY_BLOCK) row computation
-  over all 256 lanes at once, and `any(reach)` decides descend-vs-skip.
-  Wavefronts are pre-sorted by (direction octant, origin Morton cell)
-  so a block's rays agree about what to visit — the beam-tracing
-  amortization (bvh.c:545-668) reborn as sorted wavefronts.
-- **No stack**: on hit advance to node+1, on miss jump to skip[node]
-  (DFS order, accel/bvh.py).  When every lane is already occluded the
-  root test fails and traversal exits in one step.
+  (accel/bvh.py, the binned algorithm of bvh.c:1329) stops at leaves of
+  at most TC triangles, each padded to one TC-triangle tile, so a leaf
+  visit is one dense (TC, RAY_BLOCK) test — the same test the dense
+  kernels run (pallas_isect.py).
+- **One walk per program.**  A program owns RAY_BLOCK rays and walks the
+  skip-link layout once for all of them: node bounds are read from
+  device memory, the slab test runs over every ray of the program, and
+  "any ray reaches" decides descend-or-skip.  No stack: on reach go to
+  node + 1, else to skip[node] (DFS order, accel/bvh.py).  Node arrays
+  live in device memory with no size budget.
+- **Coherent programs.**  The AO gather sorts its rays into blocks of
+  Morton-adjacent origins times cone-adjacent strata, so a program's rays
+  agree about what to visit — the beam-tracing amortization
+  (bvh.c:545-668) as sorted wavefronts.  The any-hit walk ends when
+  every ray of the program is occluded.
 
-SMEM budget: node arrays cost 36 B/node (6 f32 bbox + 3 i32 meta); the
-host build adapts its leaf size to stay under NODE_BUDGET nodes
-(~220 KB, measured safe: 512 KB SMEM scratch compiles, 1 MB does not).
-
-Triangles stay VMEM-resident up to MAX_TRIS_VMEM; bigger scenes keep
-them in HBM and leaf visits DMA (16, TC) tiles through a double-buffered
-VMEM window (pallas guide "Patterns: Double Buffering").
-
-Interpret mode runs the identical kernels on CPU for the test suite.
+Interpret mode runs the same kernels on the CPU for the test suite.
 """
 
 from __future__ import annotations
@@ -40,59 +30,39 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from lucille_tpu.accel.bruteforce import DET_EPS
-from lucille_tpu.accel.pallas_isect import RAY_BLOCK, TC, _load_tile_cols
+from lucille_tpu.accel.pallas_isect import (
+    any_lane,
+    load_rays,
+    mt_any,
+    mt_closest,
+    pack_rays,
+    pack_tris,
+    slab,
+    tile_cols,
+    triton_call,
+)
 
-_VMEM = pltpu.VMEM
+# Shapes chosen on an H100 (80GB HBM3, 400 W limit) on the 1M-triangle
+# heightfield's AO step, among leaf tiles {16, 32} x rays per program
+# {32, 64, 128} x warps {2, 4}: 16-triangle leaves and 32-ray packets
+# were fastest for both walks (PERF.md, PR 1).
+TC = 16  # triangles per leaf tile
+RAY_BLOCK = 32  # rays per program (packet width)
 
-# node-array SMEM budget (LUCILLE_BVH_NODES overrides).  36 B/node.
-# r4 sweep on the 1M heightfield: 3072 -> 1.19, 8192 -> 1.43,
-# 16384 -> 1.55 Mrays/s (finer leaves cut pair tests 22% for 35% more
-# — cheaper — node visits); 24576 (885 KB) fails to compile, so 16384
-# (590 KB) is the measured compile ceiling sweet spot.
-NODE_BUDGET = 16384
-
-
-def _node_budget() -> int:
-    import os
-
-    return int(os.environ.get("LUCILLE_BVH_NODES", NODE_BUDGET))
-
-
-def _ao_block() -> int:
-    """Lanes per fused-AO block walk (LUCILLE_BVH_AO_BLOCK).
-
-    Bigger blocks amortize scalar walk overhead over more rays but grow
-    the per-walk leaf union and the (TC, block) MT intermediates.
-    MEASURED on the 1M heightfield (fused mode): 256 -> 0.95 Mrays/s,
-    1024 -> 0.48 (union grew ~2.7x and VMEM pressure rose) — so 256
-    stays the default and the cone-tiled decomposition below is the
-    production path for large scenes."""
-    import os
-
-    return int(os.environ.get("LUCILLE_BVH_AO_BLOCK", 256))
-
-# VMEM-resident triangle matrix cap: (16, N) f32 = 64 B/tri; 131072 tris
-# = 8.4 MB, leaving ~half of VMEM for ray blocks + scratch
-MAX_TRIS_VMEM = 131072
-
-# R2 additive-recurrence constants for per-stratum Cranley-Patterson
-# rotation (same scheme as pallas_ao.py — qmc.c:380-428 flavor)
-_R2_A1 = 0.7548776662466927
-_R2_A2 = 0.5698402909980532
+# strata per cone-tiled AO block: RAY_BLOCK / CONE_K Morton-adjacent
+# origins share a program with CONE_K cone-adjacent strata (untuned)
+CONE_K = 4
 
 
 # ---------------------------------------------------------------------------
-# host build: triangle BVH -> tile-aligned leaves + SMEM node arrays
+# host build: triangle BVH -> tile-aligned leaves + node arrays
 # ---------------------------------------------------------------------------
 
 
-def build_tile_bvh(v0, v1, v2, node_budget: int | None = None):
-    """SAH BVH with tile-aligned leaves.
+def build_tile_bvh(v0, v1, v2):
+    """SAH BVH whose leaves each fill one TC-triangle tile.
 
     Returns (src, nbox, nmeta, n_nodes):
       src   : (n_leafpad,) int64 — source triangle id per padded slot, or
@@ -102,22 +72,10 @@ def build_tile_bvh(v0, v1, v2, node_budget: int | None = None):
       nmeta : (3, M) i32 — rows [skip, first_tile, n_tiles] (n_tiles = 0
               marks an inner node);
       n_nodes: M.
-
-    Leaf size doubles until the node count fits the SMEM budget
-    (36 B/node), so a 1M-triangle scene lands around 512-triangle leaves.
     """
     from lucille_tpu.accel.bvh import build_bvh
 
-    if node_budget is None:
-        node_budget = _node_budget()  # read at call time (bench overrides)
-    n = len(v0)
-    leaf = TC
-    while True:
-        bvh = build_bvh(v0, v1, v2, leaf_size=leaf)
-        if len(bvh.skip) <= node_budget or leaf >= n:
-            break
-        leaf *= 2
-
+    bvh = build_bvh(v0, v1, v2, leaf_size=TC)
     m = len(bvh.skip)
     is_leaf = bvh.count > 0
     leaf_ids = np.flatnonzero(is_leaf)
@@ -151,970 +109,244 @@ def build_tile_bvh(v0, v1, v2, node_budget: int | None = None):
     return src, nbox, nmeta, m
 
 
-# ---------------------------------------------------------------------------
-# kernel helpers
-# ---------------------------------------------------------------------------
-
-
-def _slab(node, nbox_ref, ox, oy, oz, ivx, ivy, ivz):
-    """Block-vs-node AABB slab test: (1, RB) tn/tf rows from SMEM bbox
-    scalars (test_ray_aabb, bvh.c:870, vectorized over lanes)."""
-    t0x = (nbox_ref[0, node] - ox) * ivx
-    t1x = (nbox_ref[3, node] - ox) * ivx
-    t0y = (nbox_ref[1, node] - oy) * ivy
-    t1y = (nbox_ref[4, node] - oy) * ivy
-    t0z = (nbox_ref[2, node] - oz) * ivz
-    t1z = (nbox_ref[5, node] - oz) * ivz
-    tn = jnp.maximum(
-        jnp.maximum(jnp.minimum(t0x, t1x), jnp.minimum(t0y, t1y)),
-        jnp.minimum(t0z, t1z),
-    )
-    tf = jnp.minimum(
-        jnp.minimum(jnp.maximum(t0x, t1x), jnp.maximum(t0y, t1y)),
-        jnp.maximum(t0z, t1z),
-    )
-    return tn, tf
-
-
-def _bounded_inv(d):
-    return 1.0 / jnp.where(jnp.abs(d) > 1e-20, d, 1e-20)
-
-
-CACHE_SLOTS = 1024  # direct-mapped tile cache: 1024 x (16, TC) f32 = 8 MB
-
-
-def _cache_init(tag_ref):
-    """Mark every cache slot empty.  Must run once per launch, on grid
-    step 0 — TPU scratch persists across grid steps (sequential on one
-    core), which is exactly what lets the cache amortize DMAs across
-    strata AND across ray blocks."""
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        def clr(i, _):
-            tag_ref[i] = 0
-            return 0
-
-        jax.lax.fori_loop(0, CACHE_SLOTS, clr, 0)
-
-
-def _foreach_leaf_tile(tris_ref, cache, sem, tag_ref, pend_ref, cnt_ref,
-                       first, ltiles, mt_on, *, hbm):
-    """Run mt_on(cols, base) for every 128-triangle tile of a leaf.
-
-    VMEM-resident scenes read tiles straight out of tris_ref.  HBM scenes
-    (npad > MAX_TRIS_VMEM — a 1M-triangle scene is 64 B/tri = 80 MB,
-    five times the ~16 MB VMEM) go through a direct-mapped VMEM tile
-    cache with SMEM tags: slot = tile % CACHE_SLOTS.  Misses are handled
-    asynchronously in two passes: pass 1 *issues* the DMA for every
-    missing tile of the leaf back-to-back (per-tile semaphores), pass 2
-    waits each tile just before its MT test — so the k+1..n DMAs overlap
-    the DMA wait and VPU test of tile k instead of serializing
-    (pallas guide "Patterns: Double Buffering").  Blocks are
-    Morton-sorted and strata revisit the same leaves, so the steady-state
-    hit rate is high — the cache is the TPU analog of the reference
-    BVH's mailboxing (render.h:40-47 counts nmailboxhits); cnt_ref[0]
-    counts misses so the hit rate is measurable, not assumed."""
-    rows = range(9)
-    if not hbm:
-
-        def body(k, _):
-            tile = first + k
-            base = tile * TC
-            mt_on(_load_tile_cols(tris_ref, base, rows), base)
-            return 0
-
-        jax.lax.fori_loop(0, ltiles, body, 0)
-        return
-
-    def tile_dma(k, tile, slot):
-        return pltpu.make_async_copy(
-            tris_ref.at[:, pl.ds(tile * TC, TC)],
-            cache.at[pl.ds(slot * 16, 16), :],  # 16 cache rows per slot
-            sem.at[k],
-        )
-
-    def issue(k, _):
-        tile = first + k
-        slot = jax.lax.rem(tile, jnp.int32(CACHE_SLOTS))
-        miss = tag_ref[slot] != tile + 1  # 0 = empty (_cache_init)
-        pend_ref[k] = miss.astype(jnp.int32)
-
-        @pl.when(miss)
-        def _():
-            tile_dma(k, tile, slot).start()
-            tag_ref[slot] = tile + 1
-            cnt_ref[0] = cnt_ref[0] + 1
-
-        return 0
-
-    jax.lax.fori_loop(0, ltiles, issue, 0)
-
-    def body(k, _):
-        tile = first + k
-        slot = jax.lax.rem(tile, jnp.int32(CACHE_SLOTS))
-        row0 = slot * 16
-
-        @pl.when(pend_ref[k] == 1)
-        def _():
-            tile_dma(k, tile, slot).wait()
-
-        cols = [
-            cache[pl.ds(row0 + r, 1), :].reshape(TC)[:, None]
-            for r in rows
-        ]
-        mt_on(cols, tile * TC)
-        return 0
-
-    jax.lax.fori_loop(0, ltiles, body, 0)
-
-
-def _use_hbm(npad: int) -> bool:
-    """Triangles stream from HBM when the packed matrix exceeds the VMEM
-    budget; LUCILLE_BVH_HBM=1 forces streaming (parity tests)."""
-    import os
-
-    if os.environ.get("LUCILLE_BVH_HBM") == "1":
-        return True
-    return npad > MAX_TRIS_VMEM
-
-
-def _tris_spec(hbm: bool, npad: int):
-    """Triangle-matrix BlockSpec: VMEM-resident or HBM-streamed."""
-    if hbm:
-        return pl.BlockSpec(memory_space=pl.ANY)
-    return pl.BlockSpec((16, npad), lambda i: (0, 0), memory_space=_VMEM)
-
-
-def _hbm_scratch(hbm: bool, lt_max: int = 1):
-    """Extra scratch for the HBM streaming path: direct-mapped tile
-    cache, per-tile DMA semaphores + pending flags (one per leaf tile,
-    so a whole leaf's misses can be in flight at once), tags, and the
-    miss counter; empty when VMEM-resident."""
-    if hbm:
-        return [
-            pltpu.VMEM((CACHE_SLOTS * 16, TC), jnp.float32),
-            pltpu.SemaphoreType.DMA((lt_max,)),
-            pltpu.SMEM((CACHE_SLOTS,), jnp.int32),
-            pltpu.SMEM((lt_max,), jnp.int32),
-            pltpu.SMEM((4,), jnp.int32),
-        ]
-    return []
-
-
-# ---------------------------------------------------------------------------
-# closest hit
-# ---------------------------------------------------------------------------
-
-
-def _bvh_closest_kernel(
-    rays_ref,
-    nbox_ref,
-    nmeta_ref,
-    tris_ref,
-    t_ref,
-    u_ref,
-    v_ref,
-    tri_ref,
-    stat_ref,
-    stack_ref,
-    ctrl_ref,
-    *scratch,
-    n_nodes,
-    hbm=False,
-):
-    cache, sem, tag, pend, cnt = scratch if hbm else (None,) * 5
-    if hbm:
-        _cache_init(tag)
-        cnt[0] = 0  # per-block DMA miss counter
-    ox = rays_ref[0:1, :]
-    oy = rays_ref[1:2, :]
-    oz = rays_ref[2:3, :]
-    dx = rays_ref[3:4, :]
-    dy = rays_ref[4:5, :]
-    dz = rays_ref[5:6, :]
-    tmax0 = rays_ref[6:7, :]
-    ivx = _bounded_inv(dx)
-    ivy = _bounded_inv(dy)
-    ivz = _bounded_inv(dz)
-
-    t_ref[:, :] = tmax0
-    u_ref[:, :] = jnp.zeros(u_ref.shape, jnp.float32)
-    v_ref[:, :] = jnp.zeros(v_ref.shape, jnp.float32)
-    tri_ref[:, :] = jnp.full(tri_ref.shape, -1, jnp.int32)
-
-    def mt_on(cols, base):
-        """MT closest-hit update for the tile at `base` — the same fused
-        test as pallas_isect._isect_kernel, against the running t."""
-        (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z) = cols
-        t_best = t_ref[0:1, :]
-        px = dy * e2z - dz * e2y
-        py = dz * e2x - dx * e2z
-        pz = dx * e2y - dy * e2x
-        a = e1x * px + e1y * py + e1z * pz
-        valid = jnp.abs(a) > DET_EPS
-        inva = jnp.where(valid, 1.0 / jnp.where(valid, a, 1.0), 0.0)
-        sx = ox - v0x
-        sy = oy - v0y
-        sz = oz - v0z
-        qx = sy * e1z - sz * e1y
-        qy = sz * e1x - sx * e1z
-        qz = sx * e1y - sy * e1x
-        u = (sx * px + sy * py + sz * pz) * inva
-        v = (qx * dx + qy * dy + qz * dz) * inva
-        t = (e2x * qx + e2y * qy + e2z * qz) * inva
-        hit = (
-            valid
-            & (u >= 0.0)
-            & (u <= 1.0)
-            & (v >= 0.0)
-            & (u + v <= 1.0)
-            & (t > 0.0)
-            & (t < t_best)
-        )
-        t_m = jnp.where(hit, t, jnp.inf)
-        tc = jnp.min(t_m, axis=0, keepdims=True)
-        row = jax.lax.broadcasted_iota(jnp.int32, t_m.shape, 0)
-        is_min = t_m <= tc
-        j = jnp.min(
-            jnp.where(is_min, row, t_m.shape[0]), axis=0, keepdims=True
-        )
-        sel = row == j
-        u_sel = jnp.sum(jnp.where(sel, u, 0.0), axis=0, keepdims=True)
-        v_sel = jnp.sum(jnp.where(sel, v, 0.0), axis=0, keepdims=True)
-        better = tc < t_best
-        t_ref[:, :] = jnp.where(better, tc, t_best)
-        u_ref[:, :] = jnp.where(better, u_sel, u_ref[0:1, :])
-        v_ref[:, :] = jnp.where(better, v_sel, v_ref[0:1, :])
-        tri_ref[:, :] = jnp.where(better, base + j, tri_ref[0:1, :])
-
-    # ordered child-pair walk (same shape as the any-hit kernel, with
-    # the running t_best as the reach bound): near-to-far descent
-    # shrinks t_best early so far subtrees prune; one packed
-    # vector->scalar sync per entered INNER node, none per leaf
-    sgx = (jnp.sum(dx) >= 0.0).astype(jnp.int32)
-    sgy = (jnp.sum(dy) >= 0.0).astype(jnp.int32)
-    sgz = (jnp.sum(dz) >= 0.0).astype(jnp.int32)
-    DONE = jnp.int32(n_nodes)
-
-    def tcond(c):
-        return c[0] < n_nodes
-
-    def tbody(c):
-        cur, sp, nvis, ntile = c
-        ltiles = nmeta_ref[2, cur]
-        leaf = ltiles > 0
-
-        @pl.when(leaf)
-        def _leaf():
-            _foreach_leaf_tile(
-                tris_ref, cache, sem, tag, pend, cnt, nmeta_ref[1, cur],
-                ltiles, mt_on, hbm=hbm,
-            )
-
-        @pl.when(jnp.logical_not(leaf))
-        def _inner():
-            c0 = cur + 1
-            c1 = nmeta_ref[3, cur]
-            tn0, tf0 = _slab(c0, nbox_ref, ox, oy, oz, ivx, ivy, ivz)
-            tn1, tf1 = _slab(c1, nbox_ref, ox, oy, oz, ivx, ivy, ivz)
-            t_best = t_ref[0:1, :]
-            r0 = (tn0 <= tf0) & (tf0 > 0.0) & (tn0 < t_best)
-            r1 = (tn1 <= tf1) & (tf1 > 0.0) & (tn1 < t_best)
-            s = jnp.sum(
-                r0.astype(jnp.float32) * 4096.0 + r1.astype(jnp.float32)
-            ).astype(jnp.int32)
-            a0 = s >= 4096
-            a1 = (s & 4095) > 0
-            axis = nmeta_ref[4, cur]
-            pos = jnp.where(axis == 0, sgx, jnp.where(axis == 1, sgy, sgz))
-            near_is_c0 = pos == 1
-            a_near = jnp.where(near_is_c0, a0, a1)
-            a_far = jnp.where(near_is_c0, a1, a0)
-            near = jnp.where(near_is_c0, c0, c1)
-            far = jnp.where(near_is_c0, c1, c0)
-            both = a_near & a_far
-
-            @pl.when(both)
-            def _push():
-                stack_ref[sp] = far
-
-            ctrl_ref[0] = jnp.where(
-                a_near, near, jnp.where(a_far, far, jnp.int32(-1))
-            )
-            ctrl_ref[1] = both.astype(jnp.int32)
-
-        nxt_inner = ctrl_ref[0]
-        sp2 = sp + jnp.where(leaf, 0, ctrl_ref[1])
-        want_pop = leaf | (nxt_inner < 0)
-        popped = jnp.where(
-            sp2 > 0, stack_ref[jnp.maximum(sp2 - 1, 0)], DONE
-        )
-        nxt = jnp.where(want_pop, popped, nxt_inner)
-        sp3 = jnp.where(want_pop, jnp.maximum(sp2 - 1, 0), sp2)
-        return (nxt, sp3, nvis + 1, ntile + jnp.where(leaf, ltiles, 0))
-
-    _, _, nvis, ntile = jax.lax.while_loop(
-        tcond, tbody,
-        (jnp.int32(0), jnp.int32(0), jnp.int32(0), jnp.int32(0)),
-    )
-    stat_ref[0:1, :] = jnp.full(stat_ref[0:1, :].shape, nvis, jnp.int32)
-    stat_ref[1:2, :] = jnp.full(stat_ref[1:2, :].shape, ntile, jnp.int32)
-    nmiss = cnt[0] if hbm else jnp.int32(0)
-    stat_ref[2:3, :] = jnp.full(stat_ref[2:3, :].shape, nmiss, jnp.int32)
-
-
-def _scene_npad(scene) -> int:
-    return -(-scene.tri_v0.shape[0] // TC) * TC
-
-
-def pallas_bvh_closest_hit(scene, org, dirn, tmax=None,
-                           interpret: bool | None = None):
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    # hbm decided OUTSIDE jit (env-dependent trace inside jit would make
-    # LUCILLE_BVH_HBM flips hit a stale compilation cache)
-    hbm = _use_hbm(_scene_npad(scene))
-    return _pallas_bvh_closest_hit(scene, org, dirn, tmax, interpret, hbm)
-
-
 def _node_arrays(scene):
-    """(6, M) bbox rows + (5, M) meta rows.
-
-    meta rows: [skip, first_tile, n_tiles, far_child, split_axis].
-    Children are implicit in the DFS layout: child0 = i+1, child1 =
-    skip[i+1]; the split axis is recovered from the child centroids.
-    The skip rows drive the stackless walk (fused AO / closest); the
-    child/axis rows drive the ORDERED near-to-far stack walk of the
-    any-hit kernel (bvh_traverse's ordered descent, bvh.c:1093-1190) —
-    occluding lanes drop out of the reach set as early as possible, so
-    block walks over coherent wavefronts terminate sooner."""
-    nbox = jnp.concatenate(
-        [scene.node_bbmin.T, scene.node_bbmax.T], axis=0
-    ).astype(jnp.float32)
-    skip = scene.node_skip.astype(jnp.int32)
-    count = scene.node_count.astype(jnp.int32)
-    m = skip.shape[0]
-    idx = jnp.arange(m, dtype=jnp.int32)
-    c0 = jnp.minimum(idx + 1, m - 1)
-    c1 = jnp.where(count > 0, 0, skip[c0])
-    c1 = jnp.clip(c1, 0, m - 1)
-    ctr = 0.5 * (scene.node_bbmin + scene.node_bbmax)
-    axis = jnp.argmax(jnp.abs(ctr[c1] - ctr[c0]), axis=-1).astype(jnp.int32)
-    nmeta = jnp.stack(
-        [skip, scene.node_first.astype(jnp.int32), count, c1, axis]
-    )
+    """(8, M) f32 bbox rows [min | max | pad] with a relative 1e-6 margin
+    (rounding never culls a node a triangle test would hit), and (4, M)
+    i32 meta rows [skip, first_tile, n_tiles, pad]."""
+    bmin = scene.node_bbmin.astype(jnp.float32)
+    bmax = scene.node_bbmax.astype(jnp.float32)
+    bmin = bmin - 1e-6 * (1.0 + jnp.abs(bmin))
+    bmax = bmax + 1e-6 * (1.0 + jnp.abs(bmax))
+    m = bmin.shape[0]
+    nbox = jnp.zeros((8, m), jnp.float32)
+    nbox = nbox.at[0:3].set(bmin.T).at[3:6].set(bmax.T)
+    nmeta = jnp.zeros((4, m), jnp.int32)
+    nmeta = nmeta.at[0].set(scene.node_skip.astype(jnp.int32))
+    nmeta = nmeta.at[1].set(scene.node_first.astype(jnp.int32))
+    nmeta = nmeta.at[2].set(scene.node_count.astype(jnp.int32))
     return nbox, nmeta
 
 
-def _ah_block(hbm: bool) -> int:
-    """Any-hit walk block width, static per scene class.
-
-    The walk's cost is per-ITERATION (sync + loop overhead, ~460 cy
-    measured r5), so wider blocks amortize it over more lanes at the
-    price of a bigger per-block leaf union.  MEASURED (r5): 512 lanes
-    win on VMEM-resident scenes where leaf visits are cheap dense MTs
-    (130k heightfield 5.39 -> 5.53 Mrays/s, 2.04x CPU) and LOSE on
-    HBM-streamed scenes where the union growth nearly doubles the pair
-    tests (1M: 1.99 -> 1.63) — so streaming scenes keep 256."""
-    return 256 if hbm else 512
+def _next_node(nmeta_ref, node, reach, is_leaf):
+    """Skip-link step: descend (node + 1) into a reached inner node, else
+    jump to skip[node].  Integer arithmetic, not a scalar select."""
+    d = (reach & jnp.logical_not(is_leaf)).astype(jnp.int32)
+    return d * (node + 1) + (1 - d) * nmeta_ref[0, node]
 
 
-def _pad_rays(org, dirn, tmax, block=RAY_BLOCK):
-    """(8, Bpad) ray rows; pad lanes carry zero direction + tmax 0, which
-    fails both the slab test (tf > 0) and the MT window (t < tmax), so
-    they are inert."""
-    B = org.shape[0]
-    Bpad = -(-B // block) * block
-    rays = jnp.zeros((8, Bpad), jnp.float32)
-    rays = rays.at[0:3, :B].set(org.T)
-    rays = rays.at[3:6, :B].set(dirn.T)
-    trow = (
-        jnp.full((B,), jnp.inf, jnp.float32)
-        if tmax is None
-        else jnp.broadcast_to(jnp.asarray(tmax, jnp.float32), (B,))
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+
+def _bvh_closest_kernel(rays_ref, nbox_ref, nmeta_ref, tris_ref,
+                        t_ref, u_ref, v_ref, tri_ref, stat_ref, *, n_nodes):
+    rb = t_ref.shape[0]
+    rays, tmax, (ivx, ivy, ivz) = load_rays(rays_ref)
+    ox, oy, oz = rays[0], rays[1], rays[2]
+
+    def cond(c):
+        return c[0] < n_nodes
+
+    def body(c):
+        node, t, u, v, tri, nvis, ntile = c
+        tn, tf = slab(nbox_ref, node, ox, oy, oz, ivx, ivy, ivz)
+        reach = any_lane((tn <= tf) & (tf > 0.0) & (tn < t))
+        ltiles = nmeta_ref[2, node]
+        first = nmeta_ref[1, node]
+        is_leaf = ltiles > 0
+        n_test = ltiles * (reach & is_leaf).astype(jnp.int32)
+
+        def tile(k, hit):
+            base = (first + k) * TC
+            return mt_closest(
+                tile_cols(tris_ref, base, TC, range(9)), base, rays, *hit
+            )
+
+        t, u, v, tri = jax.lax.fori_loop(0, n_test, tile, (t, u, v, tri))
+        nxt = _next_node(nmeta_ref, node, reach, is_leaf)
+        return nxt, t, u, v, tri, nvis + 1, ntile + n_test
+
+    init = (
+        jnp.int32(0),
+        tmax,
+        jnp.zeros((rb,), jnp.float32),
+        jnp.zeros((rb,), jnp.float32),
+        jnp.full((rb,), -1, jnp.int32),
+        jnp.int32(0),
+        jnp.int32(0),
     )
-    rays = rays.at[6, :B].set(trow)
-    return rays, B, Bpad
+    _, t, u, v, tri, nvis, ntile = jax.lax.while_loop(cond, body, init)
+    t_ref[:] = t
+    u_ref[:] = u
+    v_ref[:] = v
+    tri_ref[:] = tri
+    stat_ref[0, :] = jnp.full((rb,), nvis, jnp.int32)
+    stat_ref[1, :] = jnp.full((rb,), ntile, jnp.int32)
 
 
-@partial(jax.jit, static_argnames=("interpret", "hbm"))
-def _pallas_bvh_closest_hit(scene, org, dirn, tmax=None, interpret=False,
-                            hbm=False):
-    from lucille_tpu.accel.pallas_isect import _pack
+def _bvh_anyhit_kernel(rays_ref, nbox_ref, nmeta_ref, tris_ref, occ_ref,
+                       stat_ref, *, n_nodes):
+    rb = occ_ref.shape[0]
+    rays, tmax, (ivx, ivy, ivz) = load_rays(rays_ref)
+    ox, oy, oz = rays[0], rays[1], rays[2]
+    wants = tmax > rays[6]  # pad and dead lanes carry an empty window
 
-    tris, npad = _pack(scene)
+    def cond(c):
+        node, occ = c[0], c[1]
+        return (node < n_nodes) & any_lane(wants & (occ == 0))
+
+    def body(c):
+        node, occ, nvis, ntile = c
+        tn, tf = slab(nbox_ref, node, ox, oy, oz, ivx, ivy, ivz)
+        reach = any_lane(
+            (tn <= tf) & (tf > 0.0) & (tn < tmax) & wants & (occ == 0)
+        )
+        ltiles = nmeta_ref[2, node]
+        first = nmeta_ref[1, node]
+        is_leaf = ltiles > 0
+        n_test = ltiles * (reach & is_leaf).astype(jnp.int32)
+
+        def tile(k, o):
+            cols = tile_cols(tris_ref, (first + k) * TC, TC, range(9))
+            return o | jnp.max(mt_any(cols, rays, tmax).astype(jnp.int32),
+                               axis=0)
+
+        occ = jax.lax.fori_loop(0, n_test, tile, occ)
+        nxt = _next_node(nmeta_ref, node, reach, is_leaf)
+        return nxt, occ, nvis + 1, ntile + n_test
+
+    init = (jnp.int32(0), jnp.zeros((rb,), jnp.int32), jnp.int32(0),
+            jnp.int32(0))
+    _, occ, nvis, ntile = jax.lax.while_loop(cond, body, init)
+    occ_ref[:] = occ
+    stat_ref[0, :] = jnp.full((rb,), nvis, jnp.int32)
+    stat_ref[1, :] = jnp.full((rb,), ntile, jnp.int32)
+
+
+def _walk_specs(nbox, nmeta, tris):
+    return [
+        pl.BlockSpec((8, RAY_BLOCK), lambda i: (0, i)),
+        pl.BlockSpec(nbox.shape, lambda i: (0, 0)),
+        pl.BlockSpec(nmeta.shape, lambda i: (0, 0)),
+        pl.BlockSpec(tris.shape, lambda i: (0, 0)),
+    ]
+
+
+def _walk_stats(stat):
+    """Per-program (node visits, leaf tiles tested) summed over programs
+    -> the renderer's traversal and triangle-test counters."""
+    s = stat[:, ::RAY_BLOCK].astype(jnp.float32).sum(axis=1)
+    return {"ntrav": s[0], "ntests": s[1] * (TC * RAY_BLOCK)}
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def pallas_bvh_closest_hit(scene, org, dirn, tmax=None, tmin: float = 0.0):
+    """Closest hit through the packet walk; same contract as
+    brute_closest_hit."""
+    return _pallas_bvh_closest_hit(scene, org, dirn, tmax, float(tmin))
+
+
+@partial(jax.jit, static_argnames=("tmin",))
+def _pallas_bvh_closest_hit(scene, org, dirn, tmax=None, tmin=0.0):
+    B = org.shape[0]
+    tris, _ = pack_tris(scene, TC)
     nbox, nmeta = _node_arrays(scene)
-    n_nodes = scene.n_nodes
-    rays, B_real, B = _pad_rays(org, dirn, tmax)
-
-    def spec(shape, index_map):
-        return pl.BlockSpec(shape, index_map, memory_space=_VMEM)
-
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    out_spec = spec((1, RAY_BLOCK), lambda i: (0, i))
-    t, u, v, tri, stat = pl.pallas_call(
-        partial(_bvh_closest_kernel, n_nodes=n_nodes, hbm=hbm),
-        grid=(B // RAY_BLOCK,),
-        in_specs=[
-            spec((8, RAY_BLOCK), lambda i: (0, i)),
-            smem,
-            smem,
-            _tris_spec(hbm, npad),
-        ],
-        out_specs=[out_spec] * 4 + [spec((3, RAY_BLOCK), lambda i: (0, i))],
+    rays, Bpad = pack_rays(org, dirn, tmax, tmin, RAY_BLOCK)
+    row = pl.BlockSpec((RAY_BLOCK,), lambda i: (i,))
+    t, u, v, tri, stat = triton_call(
+        partial(_bvh_closest_kernel, n_nodes=scene.n_nodes),
+        grid=(Bpad // RAY_BLOCK,),
+        in_specs=_walk_specs(nbox, nmeta, tris),
+        out_specs=[row] * 4 + [pl.BlockSpec((2, RAY_BLOCK), lambda i: (0, i))],
         out_shape=[
-            jax.ShapeDtypeStruct((1, B), jnp.float32),
-            jax.ShapeDtypeStruct((1, B), jnp.float32),
-            jax.ShapeDtypeStruct((1, B), jnp.float32),
-            jax.ShapeDtypeStruct((1, B), jnp.int32),
-            jax.ShapeDtypeStruct((3, B), jnp.int32),
+            jax.ShapeDtypeStruct((Bpad,), jnp.float32),
+            jax.ShapeDtypeStruct((Bpad,), jnp.float32),
+            jax.ShapeDtypeStruct((Bpad,), jnp.float32),
+            jax.ShapeDtypeStruct((Bpad,), jnp.int32),
+            jax.ShapeDtypeStruct((2, Bpad), jnp.int32),
         ],
-        scratch_shapes=[pltpu.SMEM((192,), jnp.int32),
-                        pltpu.SMEM((8,), jnp.int32)]
-        + _hbm_scratch(hbm, max(1, scene.leaf_tiles_max)),
-        interpret=interpret,
+        name="lucille_bvh_closest",
     )(rays, nbox, nmeta, tris)
-
-    tri = tri[0, :B_real]
+    tri = tri[:B]
     return {
-        "t": t[0, :B_real],
-        "u": u[0, :B_real],
-        "v": v[0, :B_real],
-        "tri": jnp.minimum(jnp.maximum(tri, 0), scene.tri_v0.shape[0] - 1),
+        "t": t[:B],
+        "u": u[:B],
+        "v": v[:B],
+        "tri": jnp.minimum(tri, scene.tri_v0.shape[0] - 1),
         "hit": tri >= 0,
-        "ntests": jnp.sum(stat[1, ::RAY_BLOCK].astype(jnp.float32))
-        * (TC * RAY_BLOCK),
-        "ntrav": jnp.sum(stat[0, ::RAY_BLOCK].astype(jnp.float32)),
-        "nmiss": jnp.sum(stat[2, ::RAY_BLOCK].astype(jnp.float32)),
+        **_walk_stats(stat),
     }
 
 
-# ---------------------------------------------------------------------------
-# any hit (occlusion)
-# ---------------------------------------------------------------------------
-
-
-def _bvh_anyhit_kernel(
-    rays_ref, nbox_ref, nmeta_ref, tris_ref, occ_ref, stat_ref,
-    stack_ref, ctrl_ref, *scratch, n_nodes, hbm=False,
-):
-    """Any-hit occlusion: ordered CHILD-PAIR stack traversal.
-
-    Descent prefers the child nearer along the block's mean ray
-    direction (bvh_traverse's sign-ordered descent, bvh.c:1093-1190).
-    Each iteration ENTERS one already-reached node: leaves run their
-    tile tests with NO vector->scalar sync at all; inner nodes slab-test
-    BOTH children and decide near/far/push with ONE packed sync —
-    sum(reach_near * 4096 + reach_far) gives both "any lane reaches"
-    bits in a single vector->scalar reduction (lane counts <= 256 <
-    4096, and the packed sum <= 256*4097 is exact in f32).  Children
-    that fail the test are never visited, so the per-visit sync tax the
-    r5 profile measured (~390 cy/visit, ~70% of the 1M-tri frame;
-    docs/performance.md) is paid once per ENTERED INNER node instead of
-    once per touched node.  An r4 child-pair variant with one sync PER
-    CHILD measured ~10x slower — the packing is the difference.
-    Trade: a far child pushed before its sibling's subtree completed is
-    entered without re-testing against the (monotone) occlusion state —
-    correct, marginally more tile work on occlusion-heavy scenes.
-    """
-    cache, sem, tag, pend, cnt = scratch if hbm else (None,) * 5
-    if hbm:
-        _cache_init(tag)
-        cnt[0] = 0
-    ox = rays_ref[0:1, :]
-    oy = rays_ref[1:2, :]
-    oz = rays_ref[2:3, :]
-    dx = rays_ref[3:4, :]
-    dy = rays_ref[4:5, :]
-    dz = rays_ref[5:6, :]
-    tmax = rays_ref[6:7, :]
-    ivx = _bounded_inv(dx)
-    ivy = _bounded_inv(dy)
-    ivz = _bounded_inv(dz)
-
-    occ_ref[:, :] = jnp.zeros(occ_ref.shape, jnp.float32)
-
-    def mt_on(cols, base):
-        # Division-free any-hit: the megakernel's signed-volume test
-        # (pallas_ao.py) recast on the (v0, e1, e2) pack.  The raw MT
-        # triple products u' = s.p, v' = q.d, t' = e2.q satisfy
-        # u' + v' + w' = a (the determinant), so "inside" is just a
-        # same-sign test and the t/a range checks become products:
-        # t'a > 0 and t'a < tmax a^2 (multiplying t'/a < tmax by a^2 > 0
-        # preserves the inequality).  No reciprocal, no per-coordinate
-        # compares — an occlusion query (bvh.c:731-791 semantics) never
-        # needs the actual (u, v, t).
-        (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z) = cols
-        px = dy * e2z - dz * e2y
-        py = dz * e2x - dx * e2z
-        pz = dx * e2y - dy * e2x
-        a = e1x * px + e1y * py + e1z * pz
-        sx = ox - v0x
-        sy = oy - v0y
-        sz = oz - v0z
-        qx = sy * e1z - sz * e1y
-        qy = sz * e1x - sx * e1z
-        qz = sx * e1y - sy * e1x
-        u = sx * px + sy * py + sz * pz
-        v = qx * dx + qy * dy + qz * dz
-        w = a - u - v
-        t = e2x * qx + e2y * qy + e2z * qz
-        inside = (jnp.minimum(jnp.minimum(u, v), w) >= 0.0) | (
-            jnp.maximum(jnp.maximum(u, v), w) <= 0.0
-        )
-        ta = t * a
-        hit = (
-            inside
-            & (ta > 0.0)
-            & (ta < tmax * (a * a))
-            & (jnp.abs(a) > DET_EPS)
-        )
-        any1 = jnp.any(hit, axis=0, keepdims=True)
-        occ_ref[:, :] = jnp.maximum(occ_ref[0:1, :], any1.astype(jnp.float32))
-
-    # block mean-direction signs decide near-vs-far child per split axis
-    sgx = (jnp.sum(dx) >= 0.0).astype(jnp.int32)
-    sgy = (jnp.sum(dy) >= 0.0).astype(jnp.int32)
-    sgz = (jnp.sum(dz) >= 0.0).astype(jnp.int32)
-
-    DONE = jnp.int32(n_nodes)
-
-    def tcond(c):
-        return c[0] < n_nodes
-
-    def tbody(c):
-        # invariant: `cur` was reached by some live lane when its parent
-        # tested it (the root is entered unconditionally)
-        cur, sp, nvis, ntile = c
-        ltiles = nmeta_ref[2, cur]
-        leaf = ltiles > 0
-
-        @pl.when(leaf)
-        def _leaf():
-            _foreach_leaf_tile(
-                tris_ref, cache, sem, tag, pend, cnt, nmeta_ref[1, cur],
-                ltiles, mt_on, hbm=hbm,
-            )
-
-        @pl.when(jnp.logical_not(leaf))
-        def _inner():
-            c0 = cur + 1
-            c1 = nmeta_ref[3, cur]
-            tn0, tf0 = _slab(c0, nbox_ref, ox, oy, oz, ivx, ivy, ivz)
-            tn1, tf1 = _slab(c1, nbox_ref, ox, oy, oz, ivx, ivy, ivz)
-            alive = occ_ref[0:1, :] < 0.5
-            r0 = (tn0 <= tf0) & (tf0 > 0.0) & (tn0 < tmax) & alive
-            r1 = (tn1 <= tf1) & (tf1 > 0.0) & (tn1 < tmax) & alive
-            # ONE packed vector->scalar sync for both children
-            s = jnp.sum(
-                r0.astype(jnp.float32) * 4096.0 + r1.astype(jnp.float32)
-            ).astype(jnp.int32)
-            a0 = s >= 4096
-            a1 = (s & 4095) > 0
-            axis = nmeta_ref[4, cur]
-            # DFS child0 = cur+1 sits on the LOW side of the split axis,
-            # so it is the near child when the mean direction is positive
-            pos = jnp.where(axis == 0, sgx, jnp.where(axis == 1, sgy, sgz))
-            near_is_c0 = pos == 1
-            a_near = jnp.where(near_is_c0, a0, a1)
-            a_far = jnp.where(near_is_c0, a1, a0)
-            near = jnp.where(near_is_c0, c0, c1)
-            far = jnp.where(near_is_c0, c1, c0)
-            both = a_near & a_far
-
-            @pl.when(both)
-            def _push():
-                stack_ref[sp] = far
-
-            ctrl_ref[0] = jnp.where(
-                a_near, near, jnp.where(a_far, far, jnp.int32(-1))
-            )
-            ctrl_ref[1] = both.astype(jnp.int32)
-
-        nxt_inner = ctrl_ref[0]
-        sp2 = sp + jnp.where(leaf, 0, ctrl_ref[1])
-        want_pop = leaf | (nxt_inner < 0)
-        popped = jnp.where(
-            sp2 > 0, stack_ref[jnp.maximum(sp2 - 1, 0)], DONE
-        )
-        nxt = jnp.where(want_pop, popped, nxt_inner)
-        sp3 = jnp.where(want_pop, jnp.maximum(sp2 - 1, 0), sp2)
-        return (nxt, sp3, nvis + 1,
-                ntile + jnp.where(leaf, ltiles, 0))
-
-    _, _, nvis, ntile = jax.lax.while_loop(
-        tcond, tbody,
-        (jnp.int32(0), jnp.int32(0), jnp.int32(0), jnp.int32(0)),
-    )
-    stat_ref[0:1, :] = jnp.full(stat_ref[0:1, :].shape, nvis, jnp.int32)
-    stat_ref[1:2, :] = jnp.full(stat_ref[1:2, :].shape, ntile, jnp.int32)
-    nmiss = cnt[0] if hbm else jnp.int32(0)
-    stat_ref[2:3, :] = jnp.full(stat_ref[2:3, :].shape, nmiss, jnp.int32)
-
-
-def pallas_bvh_any_hit(scene, org, dirn, tmax=None,
-                       interpret: bool | None = None, hbm: bool | None = None):
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    if hbm is None:
-        hbm = _use_hbm(_scene_npad(scene))
-    occ, _stats = _pallas_bvh_any_hit(scene, org, dirn, tmax, interpret, hbm)
+def pallas_bvh_any_hit(scene, org, dirn, tmax=None, tmin: float = 0.0):
+    """Occlusion through the packet walk; returns bool (B,)."""
+    occ, _stats = _pallas_bvh_any_hit(scene, org, dirn, tmax, float(tmin))
     return occ
 
 
-@partial(jax.jit, static_argnames=("interpret", "hbm"))
-def _pallas_bvh_any_hit(scene, org, dirn, tmax=None, interpret=False,
-                        hbm=False):
-    from lucille_tpu.accel.pallas_isect import _pack
-
-    tris, npad = _pack(scene)
+@partial(jax.jit, static_argnames=("tmin",))
+def _pallas_bvh_any_hit(scene, org, dirn, tmax=None, tmin=0.0):
+    """(occ (B,) bool, {"ntrav", "ntests"})."""
+    B = org.shape[0]
+    tris, _ = pack_tris(scene, TC)
     nbox, nmeta = _node_arrays(scene)
-    blk = _ah_block(hbm)
-    rays, B_real, B = _pad_rays(org, dirn, tmax, blk)
-
-    def spec(shape, index_map):
-        return pl.BlockSpec(shape, index_map, memory_space=_VMEM)
-
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    occ, stat = pl.pallas_call(
-        partial(_bvh_anyhit_kernel, n_nodes=scene.n_nodes, hbm=hbm),
-        grid=(B // blk,),
-        in_specs=[
-            spec((8, blk), lambda i: (0, i)),
-            smem,
-            smem,
-            _tris_spec(hbm, npad),
-        ],
+    rays, Bpad = pack_rays(org, dirn, tmax, tmin, RAY_BLOCK)
+    occ, stat = triton_call(
+        partial(_bvh_anyhit_kernel, n_nodes=scene.n_nodes),
+        grid=(Bpad // RAY_BLOCK,),
+        in_specs=_walk_specs(nbox, nmeta, tris),
         out_specs=[
-            spec((1, blk), lambda i: (0, i)),
-            spec((3, blk), lambda i: (0, i)),
+            pl.BlockSpec((RAY_BLOCK,), lambda i: (i,)),
+            pl.BlockSpec((2, RAY_BLOCK), lambda i: (0, i)),
         ],
         out_shape=[
-            jax.ShapeDtypeStruct((1, B), jnp.float32),
-            jax.ShapeDtypeStruct((3, B), jnp.int32),
+            jax.ShapeDtypeStruct((Bpad,), jnp.int32),
+            jax.ShapeDtypeStruct((2, Bpad), jnp.int32),
         ],
-        # stack depth: binned SAH with tile leaves keeps trees shallow
-        # (~2*log2(8192) worst observed ~40); 192 is paranoid headroom.
-        # ctrl (8,) carries the pair-walk's inner-node decision out of
-        # its pl.when region (next node, push flag)
-        scratch_shapes=[pltpu.SMEM((192,), jnp.int32),
-                        pltpu.SMEM((8,), jnp.int32)]
-        + _hbm_scratch(hbm, max(1, scene.leaf_tiles_max)),
-        interpret=interpret,
+        name="lucille_bvh_anyhit",
     )(rays, nbox, nmeta, tris)
-    stats = stat[:, ::blk].astype(jnp.float32).sum(axis=1)
-    return occ[0, :B_real] > 0.5, stats
+    return occ[:B] > 0, _walk_stats(stat)
 
 
-def _bvh_ao_kernel(
-    nact_ref,
-    rays_ref,
-    jit_ref,
-    nbox_ref,
-    nmeta_ref,
-    tris_ref,
-    occ_ref,
-    stat_ref,
-    cur_ref,
-    *scratch,
-    n_nodes,
-    ntheta,
-    nphi,
-    hbm=False,
-):
-    cache, sem, tag, pend, cnt = scratch if hbm else (None,) * 5
-    if hbm:
-        _cache_init(tag)
-        cnt[0] = 0  # per-block DMA miss counter
-    """Occlusion counts for one compacted ray block.
-
-    Per stratum: generate the stratified hemisphere direction for every
-    lane (CP-rotated R2 jitter, as pallas_ao.py), then walk the tile BVH
-    once for the whole block.  A lane occluded at this stratum drops out
-    of the slab test; when every live lane is occluded the root test
-    fails and the walk exits in one step.
-    """
-    nsamples = ntheta * nphi
-    rb = rays_ref.shape[1]
-
-    occ_ref[:, :] = jnp.zeros((1, rb), jnp.float32)
-    stat_ref[:, :] = jnp.zeros(stat_ref.shape, jnp.int32)
-    active = pl.program_id(0) * rb < nact_ref[0]
-
-    @pl.when(active)
-    def _body():
-        ox = rays_ref[0:1, :]
-        oy = rays_ref[1:2, :]
-        oz = rays_ref[2:3, :]
-        b0x = rays_ref[3:4, :]
-        b0y = rays_ref[4:5, :]
-        b0z = rays_ref[5:6, :]
-        b1x = rays_ref[6:7, :]
-        b1y = rays_ref[7:8, :]
-        b1z = rays_ref[8:9, :]
-        b2x = rays_ref[9:10, :]
-        b2y = rays_ref[10:11, :]
-        b2z = rays_ref[11:12, :]
-        hit_row = rays_ref[12:13, :]
-        u0_lane = jit_ref[0:1, :]
-        u1_lane = jit_ref[1:2, :]
-
-        def stratum(s, carry):
-            sf = s.astype(jnp.float32)
-            sh0 = sf * _R2_A1
-            sh1 = sf * _R2_A2
-            u0 = u0_lane + (sh0 - jnp.floor(sh0))
-            u0 = u0 - jnp.floor(u0)
-            u1 = u1_lane + (sh1 - jnp.floor(sh1))
-            u1 = u1 - jnp.floor(u1)
-            fi = (s % ntheta).astype(jnp.float32)
-            fj = (s // ntheta).astype(jnp.float32)
-            z0 = (fi + u0) * (1.0 / ntheta)
-            z1 = (fj + u1) * (1.0 / nphi)
-            cos_t = jnp.sqrt(z0)
-            phi = (2.0 * jnp.pi) * z1
-            lx = jnp.cos(phi) * cos_t
-            ly = jnp.sin(phi) * cos_t
-            lz = jnp.sqrt(jnp.maximum(1.0 - z0, 0.0))
-            dx = lx * b0x + ly * b1x + lz * b2x
-            dy = lx * b0y + ly * b1y + lz * b2y
-            dz = lx * b0z + ly * b1z + lz * b2z
-            ivx = _bounded_inv(dx)
-            ivy = _bounded_inv(dy)
-            ivz = _bounded_inv(dz)
-
-            cur_ref[:, :] = jnp.zeros((1, rb), jnp.float32)
-
-            def mt_on(cols, base):
-                # division-free signed-volume any-hit; see the ordered
-                # stack walk's mt_on for the derivation (AO gather rays
-                # are unbounded, so only t'a > 0 gates the range)
-                (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z) = cols
-                px = dy * e2z - dz * e2y
-                py = dz * e2x - dx * e2z
-                pz = dx * e2y - dy * e2x
-                a = e1x * px + e1y * py + e1z * pz
-                sx = ox - v0x
-                sy = oy - v0y
-                sz = oz - v0z
-                qx = sy * e1z - sz * e1y
-                qy = sz * e1x - sx * e1z
-                qz = sx * e1y - sy * e1x
-                u = sx * px + sy * py + sz * pz
-                v = qx * dx + qy * dy + qz * dz
-                w = a - u - v
-                t = e2x * qx + e2y * qy + e2z * qz
-                inside = (jnp.minimum(jnp.minimum(u, v), w) >= 0.0) | (
-                    jnp.maximum(jnp.maximum(u, v), w) <= 0.0
-                )
-                hit = (
-                    inside & (t * a > 0.0) & (jnp.abs(a) > DET_EPS)
-                )
-                any1 = jnp.any(hit, axis=0, keepdims=True)
-                cur_ref[:, :] = jnp.maximum(
-                    cur_ref[0:1, :], any1.astype(jnp.float32)
-                )
-
-            def tcond(c):
-                return c[0] < n_nodes
-
-            def tbody(c):
-                node, nvis, ntile = c
-                tn, tf = _slab(node, nbox_ref, ox, oy, oz, ivx, ivy, ivz)
-                reach = (
-                    (tn <= tf)
-                    & (tf > 0.0)
-                    & (cur_ref[0:1, :] < 0.5)
-                    & (hit_row > 0.5)
-                )
-                live = jnp.any(reach)
-                ltiles = nmeta_ref[2, node]
-                leaf = ltiles > 0
-
-                @pl.when(live & leaf)
-                def _leaf():
-                    _foreach_leaf_tile(
-                        tris_ref, cache, sem, tag, pend, cnt,
-                        nmeta_ref[1, node], ltiles, mt_on, hbm=hbm,
-                    )
-
-                nxt = jnp.where(
-                    live & jnp.logical_not(leaf), node + 1,
-                    nmeta_ref[0, node]
-                )
-                return (nxt, nvis + 1,
-                        ntile + jnp.where(live & leaf, ltiles, 0))
-
-            _, nvis, ntile = jax.lax.while_loop(
-                tcond, tbody, (jnp.int32(0), carry[0], carry[1])
-            )
-            occ_ref[:, :] = occ_ref[0:1, :] + cur_ref[0:1, :]
-            return (nvis, ntile)
-
-        nvis, ntile = jax.lax.fori_loop(
-            0, nsamples, stratum, (jnp.int32(0), jnp.int32(0))
-        )
-        occ_ref[:, :] = occ_ref[0:1, :] * hit_row
-        stat_ref[0:1, :] = jnp.full(stat_ref[0:1, :].shape, nvis, jnp.int32)
-        stat_ref[1:2, :] = jnp.full(stat_ref[1:2, :].shape, ntile, jnp.int32)
-        nmiss = cnt[0] if hbm else jnp.int32(0)
-        stat_ref[2:3, :] = jnp.full(stat_ref[2:3, :].shape, nmiss, jnp.int32)
-
-
-def pallas_bvh_ao_occlusion(
-    scene,
-    P_off,
-    b0,
-    b1,
-    b2,
-    hit,
-    key,
-    ntheta: int,
-    nphi: int,
-    interpret: bool | None = None,
-):
-    """BVH-traversed counterpart of pallas_ao.pallas_ao_occlusion: returns
-    ((B,) occlusion counts for ntheta*nphi stratified hemisphere rays,
-    (3,) f32 stats [node visits, tile tests, DMA misses] summed over
-    blocks — the reference's traversal/mailbox counters, render.h:40-47).
-
-    Two shapes, selectable with LUCILLE_BVH_AO=fused|rebinned:
-
-    - "fused" (default): strata-loop inside one kernel, one walk per
-      (block, stratum), origins sorted by (normal octant, origin Morton).
-    - "rebinned": materialize ALL B*S gather rays, sort them by
-      (direction octant, direction Morton, origin Morton), and run the
-      plain any-hit walk on the resulting 256-ray blocks — the wavefront
-      re-binning design round 1 proposed.  MEASURED WORSE at frame scale
-      (130k heightfield: 2.03 vs 2.76 Mrays/s): a fused block walks once
-      per stratum over 256 origins from one tiny Morton patch (174 node /
-      34.5 leaf visits per 256 rays), while any frame-wide re-binning
-      must mix origins or directions within a block (best ordering: 294
-      node / 67 leaf visits per 256 rays).  Kept for measurement.
-    """
-    import os
-
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    hbm = _use_hbm(_scene_npad(scene))
-    mode = os.environ.get("LUCILLE_BVH_AO", "cone")
-    if mode == "rebinned":
-        occ = _pallas_bvh_ao_rebinned(
-            scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, interpret, hbm
-        )
-        return occ, jnp.zeros((3,), jnp.float32)
-    if mode == "cone":
-        return _pallas_bvh_ao_conetiled(
-            scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, interpret, hbm,
-            _cone_k(),
-        )
-    return _pallas_bvh_ao_occlusion(
-        scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, interpret, hbm,
-        _ao_block(),
-    )
+# ---------------------------------------------------------------------------
+# AO gather: cone-tiled blocks through the any-hit walk
+# ---------------------------------------------------------------------------
 
 
 def _stratified_dirs(b0, b1, b2, key, ntheta: int, nphi: int,
                      nreal: int | None = None):
     """All ntheta*nphi stratified hemisphere directions for every lane:
-    (S, B, 3).  Same sample DISTRIBUTION as the fused kernel — two
-    per-lane uniforms, Cranley-Patterson-rotated per stratum by the R2
-    sequence (ambientocclusion.c:85-110 strata; qmc.c:380-428 flavor) —
-    but the per-lane uniform STREAMS differ (drawn per raster lane here,
-    per compacted lane in the fused kernel), so individual pixels differ
-    under LUCILLE_BVH_AO=rebinned while image statistics match.
+    (S, B, 3), with the fused AO kernel's arithmetic
+    (pallas_ao.stratum_direction) on two per-lane uniforms drawn per
+    raster lane.
 
-    nreal bounds the uniform draw so the stream is independent of the
-    block-padding amount (pad lanes are dead and never consume samples;
-    AH_BLOCK changes must not move live lanes' samples)."""
+    nreal bounds the uniform draw so the stream does not depend on the
+    block padding (pad lanes are dead and never consume samples)."""
+    from lucille_tpu.accel.pallas_ao import stratum_direction
+
     B = b0.shape[0]
-    S = ntheta * nphi
     u = jax.random.uniform(key, (2, nreal or B), dtype=jnp.float32)
     if nreal and nreal != B:
         u = jnp.zeros((2, B), jnp.float32).at[:, :nreal].set(u)
-    s = jnp.arange(S, dtype=jnp.float32)
-    sh0 = s * _R2_A1
-    sh0 = sh0 - jnp.floor(sh0)
-    sh1 = s * _R2_A2
-    sh1 = sh1 - jnp.floor(sh1)
-    u0 = u[0][None, :] + sh0[:, None]
-    u0 = u0 - jnp.floor(u0)
-    u1 = u[1][None, :] + sh1[:, None]
-    u1 = u1 - jnp.floor(u1)
-    fi = (jnp.arange(S, dtype=jnp.int32) % ntheta).astype(jnp.float32)
-    fj = (jnp.arange(S, dtype=jnp.int32) // ntheta).astype(jnp.float32)
-    z0 = (fi[:, None] + u0) * (1.0 / ntheta)
-    z1 = (fj[:, None] + u1) * (1.0 / nphi)
-    cos_t = jnp.sqrt(z0)
-    phi = (2.0 * jnp.pi) * z1
-    lx = jnp.cos(phi) * cos_t
-    ly = jnp.sin(phi) * cos_t
-    lz = jnp.sqrt(jnp.maximum(1.0 - z0, 0.0))
-    return (
-        lx[..., None] * b0[None]
-        + ly[..., None] * b1[None]
-        + lz[..., None] * b2[None]
-    )
-
-
-@partial(jax.jit, static_argnames=("ntheta", "nphi", "interpret", "hbm"))
-def _pallas_bvh_ao_rebinned(
-    scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, interpret, hbm=False
-):
-    from lucille_tpu.accel.pallas_ao import _spread3
-
-    B = P_off.shape[0]
-    S = ntheta * nphi
-    d = _stratified_dirs(b0, b1, b2, key, ntheta, nphi).reshape(S * B, 3)
-    o = jnp.broadcast_to(P_off[None], (S, B, 3)).reshape(S * B, 3)
-    live = jnp.broadcast_to(hit[None], (S, B)).reshape(S * B)
-    # dead rays (missed eye rays): park the origin far outside the scene
-    # bbox pointing away, so their blocks fail the root slab in one step
-    diag = scene.bbox_max - scene.bbox_min
-    o = jnp.where(live[:, None], o, (scene.bbox_min - diag - 1.0)[None])
-    d = jnp.where(live[:, None], d, jnp.asarray([[0.0, 0.0, -1.0]]))
-
-    # coherence key: direction octant | direction Morton (3 bits/axis) |
-    # origin Morton (6 bits/axis); dead rays sort last.  This is the
-    # beam-tracing amortization (bvh.c:545-668) as sorted wavefronts.
-    octant = (
-        (d[:, 0] > 0).astype(jnp.int32) * 4
-        + (d[:, 1] > 0).astype(jnp.int32) * 2
-        + (d[:, 2] > 0).astype(jnp.int32)
-    )
-    qd = jnp.clip(((d * 0.5 + 0.5) * 8.0).astype(jnp.int32), 0, 7)
-    md = (_spread3(qd[:, 0]) << 2) | (_spread3(qd[:, 1]) << 1) | _spread3(
-        qd[:, 2]
-    )
-    ext = jnp.maximum(scene.bbox_max - scene.bbox_min, 1e-12)
-    qo = jnp.clip(
-        ((o - scene.bbox_min) / ext * 64.0).astype(jnp.int32), 0, 63
-    )
-    mo = (_spread3(qo[:, 0]) << 2) | (_spread3(qo[:, 1]) << 1) | _spread3(
-        qo[:, 2]
-    )
-    keybits = (octant << 27) | (md << 18) | mo
-    keybits = jnp.where(live, keybits, jnp.int32(1 << 30))
-    order = jnp.argsort(keybits, stable=False).astype(jnp.int32)
-
-    occ_sorted, _stats = _pallas_bvh_any_hit(
-        scene, o[order], d[order], None, interpret, hbm
-    )
-    occ_flat = (
-        jnp.zeros((S * B,), jnp.float32)
-        .at[order]
-        .set(occ_sorted.astype(jnp.float32))
-    )
-    return occ_flat.reshape(S, B).sum(axis=0) * hit.astype(jnp.float32)
+    basis = tuple(tuple(b[:, k] for k in range(3)) for b in (b0, b1, b2))
+    dirs = jax.vmap(
+        lambda s: jnp.stack(
+            stratum_direction(s, u[0], u[1], *basis, ntheta, nphi), axis=-1
+        )
+    )(jnp.arange(ntheta * nphi, dtype=jnp.int32))
+    return dirs
 
 
 def _stratum_tile_perm(ntheta: int, nphi: int, K: int) -> np.ndarray:
     """Permutation of the S=ntheta*nphi strata grouping cone-adjacent
-    (theta, phi) tiles of the stratified grid into runs of K, so each
-    256-lane block spans a COMPACT direction cone (not the full
-    hemisphere).  Falls back to the natural order when the grid doesn't
-    tile evenly."""
+    (theta, phi) cells of the stratified grid into runs of K, so each
+    block spans a compact direction cone (not the whole hemisphere).
+    Natural order when the grid does not tile evenly."""
     S = ntheta * nphi
     kt = max(1, int(np.sqrt(K)))
     while kt > 1 and (ntheta % kt or K % kt or nphi % (K // kt)):
@@ -1131,68 +363,20 @@ def _stratum_tile_perm(ntheta: int, nphi: int, K: int) -> np.ndarray:
     return np.asarray(perm, dtype=np.int32)
 
 
-def _cone_k() -> int:
-    """Strata per cone-tiled block (LUCILLE_BVH_CONE_K).  256/K Morton-
-    adjacent origins share a block with K cone-adjacent strata.
-    r4 sweep at 1M tris with the 16k-node tree: K=32/16/8/4/2/1 ->
-    1.20/1.43/1.62/1.69/1.32/1.00 Mrays/s — narrower cones win under
-    the Frisvad-coherent basis down to K=4, below which the 64-origin
-    patches blow the leaf unions back up.  (NODES=20480 at K=4 measured
-    the same 1.69 but sits near the SMEM compile cliff; 16384 stays.)"""
-    import os
-
-    return int(os.environ.get("LUCILLE_BVH_CONE_K", 4))
-
-
-@partial(jax.jit,
-         static_argnames=("ntheta", "nphi", "interpret", "hbm", "K"))
-def _pallas_bvh_ao_conetiled(
-    scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, interpret, hbm=False,
-    K=16,
-):
-    """AO gather as (origin-patch x direction-cone) blocks.
-
-    The fused per-(block, stratum) walk makes every ray pay for the leaf
-    union of 256 origins on EVERY stratum: ~55k triangle-pair tests per
-    gather ray on the 1M heightfield.  Here each 256-lane block is
-    G = 256/K Morton-adjacent origins x K cone-adjacent strata — compact
-    in both position AND direction, so one walk serves 256 ray-samples
-    and the union stays tight.  This is the beam-tracing amortization
-    (bvh.c:545-668) applied to the gather wavefront with the right sort
-    key — round 2's frame-wide "rebinned" sort mixed origins from the
-    whole image and measured worse; the fix is tiling, not sorting.
-    """
-    oo, dd, order, live, layout = _conetile_rays(
-        scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, K
-    )
-    NG, ST, K, G, S, Bpad, B = layout
-
-    occ_flat, stats = _pallas_bvh_any_hit(
-        scene, oo, dd, None, interpret, hbm
-    )
-    occ_g = (
-        occ_flat.astype(jnp.float32).reshape(NG, S, G).sum(axis=1).reshape(-1)
-    )
-    occ = jnp.zeros((Bpad,), jnp.float32).at[order].set(occ_g)
-    return occ[:B] * hit.astype(jnp.float32), stats
-
-
-def _conetile_rays(scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, K):
-    """Shared cone-tiled block assembly: returns (origins oo (S*Bpad, 3),
-    dirs dd (S*Bpad, 3), origin sort order, live lane mask (S*Bpad,),
-    layout tuple (NG, ST, K, G, S, Bpad, B)) with lane layout
-    (origin-group NG, stratum-tile ST, k, g); the layout's K is the
-    post-clamp strata-per-block (the K parameter rounded down to divide
-    both S and RAY_BLOCK)."""
+def _conetile_rays(scene, P_off, b0, b1, b2, hit, key, ntheta, nphi):
+    """Gather rays in cone-tiled block order: returns (origins (S*Bpad,
+    3), dirs (S*Bpad, 3), origin sort order, layout (NG, G, S, Bpad, B)).
+    Lane layout is (origin group NG, stratum tile, k, g): each RAY_BLOCK
+    block holds G Morton-adjacent origins times K cone-adjacent strata."""
     from lucille_tpu.accel.pallas_ao import compaction_order
 
     B = P_off.shape[0]
     S = ntheta * nphi
-    blk = _ah_block(_use_hbm(_scene_npad(scene)))
-    while K > 1 and (S % K or blk % K):
+    K = CONE_K
+    while K > 1 and (S % K or RAY_BLOCK % K):
         K //= 2
-    G = blk // K
-    Bpad = -(-B // max(G, blk)) * max(G, blk)
+    G = RAY_BLOCK // K
+    Bpad = -(-B // RAY_BLOCK) * RAY_BLOCK
 
     if Bpad != B:
         hit_w = jnp.zeros((Bpad,), hit.dtype).at[:B].set(hit)
@@ -1203,8 +387,8 @@ def _conetile_rays(scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, K):
     order, _nhit = compaction_order(scene, P_off, b2, hit_w, 1 << 20)
 
     d_all = _stratified_dirs(b0, b1, b2, key, ntheta, nphi, B)  # (S,Bpad,3)
-    # park dead lanes outside the scene so their blocks fail the root
-    # slab in one step
+    # park dead lanes outside the scene, pointing away, so blocks of them
+    # fail the root slab test at once
     diag = scene.bbox_max - scene.bbox_min
     o = jnp.where(hit_w[:, None], P_off, (scene.bbox_min - diag - 1.0)[None])
     d_all = jnp.where(
@@ -1213,10 +397,8 @@ def _conetile_rays(scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, K):
 
     o_s = o[order]
     d_s = d_all[:, order]
-    perm = jnp.asarray(_stratum_tile_perm(ntheta, nphi, K))
-    d_s = d_s[perm]
+    d_s = d_s[jnp.asarray(_stratum_tile_perm(ntheta, nphi, K))]
 
-    # block assembly: lane layout (origin-group, stratum-tile, k, g)
     NG = Bpad // G
     ST = S // K
     dd = (
@@ -1227,113 +409,43 @@ def _conetile_rays(scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, K):
     oo = jnp.broadcast_to(
         o_s.reshape(NG, 1, 1, G, 3), (NG, ST, K, G, 3)
     ).reshape(S * Bpad, 3)
-    live = jnp.broadcast_to(
-        hit_w[order].reshape(NG, 1, 1, G), (NG, ST, K, G)
-    ).reshape(S * Bpad)
-    return oo, dd, order, live, (NG, ST, K, G, S, Bpad, B)
+    return oo, dd, order, (NG, G, S, Bpad, B)
 
 
-def pallas_bvh_ao_sunsky(
-    scene, P_off, b0, b1, b2, hit, key, ntheta: int, nphi: int, sky,
-    interpret: bool | None = None,
-):
-    """Sunsky-AO gather on the cone-tiled tile-BVH path: per unoccluded
-    stratum accumulate the Preetham sky radiance along the gathered
-    direction (ambientocclusion.c:154-332's gather_sunsky), riding the
-    SAME any-hit block walk as plain AO — the per-(stratum, lane)
-    visibility exists in occ_flat before the plain path sums it away.
-    Returns (col (B, 3) summed sky radiance over unoccluded strata,
-    stats (3,))."""
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    hbm = _use_hbm(_scene_npad(scene))
-    oo, dd, order, live, layout = _conetile_rays(
-        scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, _cone_k()
+@partial(jax.jit, static_argnames=("ntheta", "nphi"))
+def pallas_bvh_ao_occlusion(scene, P_off, b0, b1, b2, hit, key,
+                            ntheta: int, nphi: int):
+    """Occlusion counts of ntheta*nphi stratified hemisphere rays per
+    primary hit, through the any-hit walk on cone-tiled blocks.  Returns
+    ((B,) f32 counts, {"ntrav", "ntests"}).
+
+    A block of Morton-adjacent origins times cone-adjacent strata is
+    compact in position and direction, so one walk serves RAY_BLOCK
+    gather rays with a tight leaf union."""
+    oo, dd, order, (NG, G, S, Bpad, B) = _conetile_rays(
+        scene, P_off, b0, b1, b2, hit, key, ntheta, nphi
     )
-    NG, ST, K, G, S, Bpad, B = layout
-    occ_flat, stats = _pallas_bvh_any_hit(
-        scene, oo, dd, None, interpret, hbm
+    occ_flat, stats = _pallas_bvh_any_hit(scene, oo, dd, None, 0.0)
+    occ_g = (
+        occ_flat.astype(jnp.float32).reshape(NG, S, G).sum(axis=1).reshape(-1)
     )
+    occ = jnp.zeros((Bpad,), jnp.float32).at[order].set(occ_g)
+    return occ[:B] * hit.astype(jnp.float32), stats
+
+
+def pallas_bvh_ao_sky(scene, P_off, b0, b1, b2, hit, key, ntheta: int,
+                      nphi: int, sky):
+    """Sunsky-AO gather on the cone-tiled walk: every unoccluded stratum
+    adds the Preetham sky radiance along its direction
+    (ambientocclusion.c:154-332's gather_sunsky).  Returns (B, 3) summed
+    sky radiance."""
+    oo, dd, order, (NG, G, S, Bpad, B) = _conetile_rays(
+        scene, P_off, b0, b1, b2, hit, key, ntheta, nphi
+    )
+    occ_flat, _stats = _pallas_bvh_any_hit(scene, oo, dd, None, 0.0)
     vis = jnp.logical_not(occ_flat).astype(jnp.float32)
-    # world (y-up) -> sky model (z-up): the reference's y/z swap
-    # (lightsource.c:152-155)
+    # world (y-up) -> sky model (z-up): lightsource.c:152-155's y/z swap
     d_sky = jnp.stack([dd[:, 0], dd[:, 2], dd[:, 1]], axis=-1)
-    skyv = sky.sky_rgb(d_sky)  # (S*Bpad, 3)
-    col_g = (vis[:, None] * skyv).reshape(NG, S, G, 3).sum(axis=1)
-    col = (
-        jnp.zeros((Bpad, 3), jnp.float32)
-        .at[order]
-        .set(col_g.reshape(-1, 3))
-    )
-    return col[:B] * hit.astype(jnp.float32)[:, None], stats
-
-
-@partial(jax.jit,
-         static_argnames=("ntheta", "nphi", "interpret", "hbm", "blk"))
-def _pallas_bvh_ao_occlusion(
-    scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, interpret, hbm=False,
-    blk=RAY_BLOCK,
-):
-    from lucille_tpu.accel.pallas_ao import compaction_order
-    from lucille_tpu.accel.pallas_isect import _pack
-
-    B = P_off.shape[0]
-    Bpad = -(-B // blk) * blk
-    tris, npad = _pack(scene)
-    nbox, nmeta = _node_arrays(scene)
-
-    if Bpad != B:
-        hit_w = jnp.zeros((Bpad,), hit.dtype).at[:B].set(hit)
-        pad3 = lambda a: jnp.zeros((Bpad, 3), a.dtype).at[:B].set(a)
-        P_off, b0, b1, b2 = pad3(P_off), pad3(b0), pad3(b1), pad3(b2)
-    else:
-        hit_w = hit
-    # octant+Morton sorted compaction (pallas_ao.compaction_order's
-    # large-scene branch) — block coherence is what makes the per-block
-    # traversal tight
-    order, nhit = compaction_order(scene, P_off, b2, hit_w, 1 << 20)
-
-    jitter = jnp.zeros((8, Bpad), jnp.float32)
-    jitter = jitter.at[0:2, :B].set(
-        jax.random.uniform(key, (2, B), dtype=jnp.float32)
-    )
-
-    rays = jnp.zeros((16, Bpad), jnp.float32)
-    rays = rays.at[0:3].set(P_off[order].T)
-    rays = rays.at[3:6].set(b0[order].T)
-    rays = rays.at[6:9].set(b1[order].T)
-    rays = rays.at[9:12].set(b2[order].T)
-    rays = rays.at[12].set(hit_w[order].astype(jnp.float32))
-    nact = nhit.astype(jnp.int32).reshape((1,))
-
-    def spec(shape, index_map):
-        return pl.BlockSpec(shape, index_map, memory_space=_VMEM)
-
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    occ_sorted, stat = pl.pallas_call(
-        partial(_bvh_ao_kernel, n_nodes=scene.n_nodes, ntheta=ntheta,
-                nphi=nphi, hbm=hbm),
-        grid=(Bpad // blk,),
-        in_specs=[
-            smem,
-            spec((16, blk), lambda i: (0, i)),
-            spec((8, blk), lambda i: (0, i)),
-            smem,
-            smem,
-            _tris_spec(hbm, npad),
-        ],
-        out_specs=[
-            spec((1, blk), lambda i: (0, i)),
-            spec((3, blk), lambda i: (0, i)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, Bpad), jnp.float32),
-            jax.ShapeDtypeStruct((3, Bpad), jnp.int32),
-        ],
-        scratch_shapes=[pltpu.VMEM((1, blk), jnp.float32)]
-        + _hbm_scratch(hbm, max(1, scene.leaf_tiles_max)),
-        interpret=interpret,
-    )(nact, rays, jitter, nbox, nmeta, tris)
-    occ = jnp.zeros((Bpad,), jnp.float32).at[order].set(occ_sorted[0])
-    stats = stat[:, ::blk].astype(jnp.float32).sum(axis=1)
-    return occ[:B], stats  # stats = (nvis, ntile, nmiss) block sums
+    col_g = (vis[:, None] * sky.sky_rgb(d_sky)).reshape(NG, S, G, 3).sum(axis=1)
+    col = jnp.zeros((Bpad, 3), jnp.float32).at[order].set(col_g.reshape(-1, 3))
+    return col[:B] * hit.astype(jnp.float32)[:, None]

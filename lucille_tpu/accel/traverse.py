@@ -1,18 +1,16 @@
-"""BVH traversal DIAGNOSTICS over ray wavefronts.
+"""Per-ray BVH walks in plain JAX over the tile-BVH arrays.
 
-Round 1 carried a gathered per-lane production traversal here; it ran at
-~8 Krays/s on TPU and faulted the runtime above 2^17-ray wavefronts, so
-it was deleted — the production BVH path is the Pallas tile-BVH
-(accel/pallas_bvh.py), where all vector work is dense and traversal
-control flow is scalar.
+Two uses:
 
-What remains is the per-ray instrumentation path: `bvh_diag` mirrors the
-reference's opt-in traversal diagnostics (ri_bvh_diag_t, bvh.h:95-104)
-and feeds the BVH visualizer (tools_tpu/bvh_viz.py, the counterpart of
-the testbed's BVHVisualizer.cpp).  Per-ray exactness matters more than
-throughput for a heatmap, so the gathered walk is the right tool here —
-it reports node visits / leaf visits / triangle tests for EACH ray, which
-the block-level kernel cannot (its counters are per 256-lane block).
+- ``walk_closest_hit`` / ``walk_any_hit``: the plain XLA version of the
+  packet-walk kernels (accel/pallas_bvh.py) — every ray runs its own
+  skip-link walk inside one ``lax.while_loop`` over the wavefront, one
+  node step or one triangle test per iteration.  It is what the kernels
+  are measured against on the card (chip_smoke.py);
+- ``bvh_diag``: the reference's opt-in traversal diagnostics
+  (ri_bvh_diag_t, bvh.h:95-104) for the BVH visualizer
+  (tools_tpu/bvh_viz.py): node visits / leaf visits / triangle tests for
+  EACH ray, which the block-level kernels cannot report.
 
 Node layout: skip-link DFS arrays over tile-aligned leaves
 (accel/pallas_bvh.build_tile_bvh): node_first/node_count are in TILE
@@ -26,7 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from lucille_tpu.accel.bruteforce import DET_EPS, _tcap
-from lucille_tpu.accel.pallas_isect import TC
+from lucille_tpu.accel.pallas_bvh import TC
 
 SLAB_EPS = 1.0e-6
 
@@ -64,6 +62,91 @@ def _mt_single(org, dirn, v0, e1, e2):
         & (t > 0.0)
     )
     return t, u, v, hit
+
+
+def _walk(scene, org, dirn, tmax, tmin, occlusion: bool):
+    """Per-ray skip-link walk; one node step or one leaf-triangle test
+    per ray per iteration (k >= 0: testing triangle k of the leaf)."""
+    B = org.shape[0]
+    DONE = scene.n_nodes
+    ntri = scene.tri_v0.shape[0]
+    inv_dir = 1.0 / jnp.where(jnp.abs(dirn) > 1e-20, dirn, 1e-20)
+    tcap = _tcap(B, tmax)
+    zi = jnp.zeros((B,), jnp.int32)
+    state = dict(
+        node=zi, k=zi - 1, t=tcap, u=tcap * 0.0, v=tcap * 0.0, tri=zi - 1,
+        occ=jnp.zeros((B,), bool),
+    )
+
+    def live(s):
+        a = s["node"] < DONE
+        return a & ~s["occ"] if occlusion else a
+
+    def body(s):
+        node, k = s["node"], s["k"]
+        active = live(s)
+        idx = jnp.minimum(node, DONE - 1)
+        count = scene.node_count[idx] * TC  # leaf triangle slots
+        skip = scene.node_skip[idx]
+        in_leaf = k >= 0
+
+        tri = jnp.clip(scene.node_first[idx] * TC + k, 0, ntri - 1)
+        t, u, v, hit = _mt_single(
+            org, dirn, scene.tri_v0[tri], scene.tri_e1[tri],
+            scene.tri_e2[tri],
+        )
+        hit = active & in_leaf & hit & (t > tmin) & (t < s["t"])
+        if occlusion:
+            occ = s["occ"] | hit
+            t_best, u_best, v_best, tri_best = s["t"], s["u"], s["v"], s["tri"]
+        else:
+            occ = s["occ"]
+            t_best = jnp.where(hit, t, s["t"])
+            u_best = jnp.where(hit, u, s["u"])
+            v_best = jnp.where(hit, v, s["v"])
+            tri_best = jnp.where(hit, tri, s["tri"])
+
+        box = _slab_test(
+            _gather3(scene.node_bbmin, idx), _gather3(scene.node_bbmax, idx),
+            org, inv_dir, s["t"],
+        )
+        is_leaf = count > 0
+        leaf_done = k + 1 >= count
+        enter = ~in_leaf & box & is_leaf
+        descend = ~in_leaf & box & ~is_leaf
+        nxt = jnp.where(
+            in_leaf,
+            jnp.where(leaf_done, skip, node),
+            jnp.where(enter, node, jnp.where(descend, node + 1, skip)),
+        )
+        k_next = jnp.where(
+            in_leaf, jnp.where(leaf_done, -1, k + 1), jnp.where(enter, 0, -1)
+        )
+        return dict(
+            node=jnp.where(active, nxt, DONE), k=k_next, t=t_best,
+            u=u_best, v=v_best, tri=tri_best, occ=occ,
+        )
+
+    return jax.lax.while_loop(lambda s: jnp.any(live(s)), body, state)
+
+
+def walk_closest_hit(scene, org, dirn, tmax=None, tmin: float = 0.0):
+    """Closest hit by per-ray walks; same contract as brute_closest_hit."""
+    s = _walk(scene, org, dirn, tmax, tmin, occlusion=False)
+    return {
+        "t": s["t"],
+        "u": s["u"],
+        "v": s["v"],
+        "tri": s["tri"],
+        "hit": s["tri"] >= 0,
+        "ntests": 0,
+        "ntrav": 0,
+    }
+
+
+def walk_any_hit(scene, org, dirn, tmax=None, tmin: float = 0.0):
+    """Occlusion by per-ray walks; returns bool (B,)."""
+    return _walk(scene, org, dirn, tmax, tmin, occlusion=True)["occ"]
 
 
 def bvh_diag(scene, org, dirn):

@@ -8,7 +8,7 @@ grid actually intersects.
 Design notes vs the reference:
 - Build (host NumPy, like the SAH BVH builder): triangles are rasterized
   into the cells their bounding boxes overlap, then flattened into a CSR
-  layout (`cell_start` offsets into `tri_idx`) — the TPU-native stand-in
+  layout (`cell_start` offsets into `tri_idx`) — the device-side stand-in
   for ugrid.c's per-cell pointer lists.  The reference uses a fixed 64^3
   grid with a blocked/Z-order cell layout for CPU cache locality
   (ugrid.c:745-760); HBM has no such small-block cache, so cells are

@@ -1,7 +1,7 @@
 """Runtime substrate: logging, timers, statistics, registries, options.
 
-TPU-native replacement for lucille's `src/base` layer (memory/containers/
-threads/atomics/queues/MPI — SURVEY.md section 2.1).  On TPU the substrate
+JAX replacement for lucille's `src/base` layer (memory/containers/
+threads/atomics/queues/MPI — SURVEY.md section 2.1).  Here the substrate
 is the Python host process + JAX runtime, so the pieces that survive are the
 *observability* and *configuration* services; threads/queues/atomics are
 replaced by static sharding and XLA collectives (see lucille_tpu.parallel).

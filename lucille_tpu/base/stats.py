@@ -5,7 +5,7 @@ Equivalent capability to lucille's ``ri_statistic_t`` + report
 traced, triangle tests, and accel-structure traversal steps, plus the
 derived **M rays/sec** headline metric.
 
-On TPU the counters cannot be mutable globals incremented from the hot loop;
+On the device the counters cannot be mutable globals incremented from the hot loop;
 integrator kernels *return* counter vectors (summed per tile under jit) and
 the host accumulates them here.  Counts that are statically known from the
 launch shape (e.g. rays dispatched in a dense wavefront) are computed

@@ -1,6 +1,6 @@
 """Display drivers: where finished pixels go.
 
-TPU-native replacement for lucille's display layer (src/display — the
+JAX replacement for lucille's display layer (src/display — the
 ``ri_display_drv_t`` vtable {open, write, close, progress} registered by
 name, render.c:224-279): hdr/file (RGBE), framebuffer (falls back to file
 when no window system, matching render.c:430-513), socket (rockenfield

@@ -53,7 +53,7 @@ class SocketDriver(DisplayDriver):
         # Explicit Display "socket" keeps the generous window (a slow
         # interpreter start under full CPU contention measured >5 s);
         # the framebuffer ROUTE lowers it so headless/batch runs fall
-        # back to file output without a 30 s stall (ADVICE r4)
+        # back to file output without a 30 s stall
         self.spawn_wait = 30.0
 
     def _spawn_viewer(self) -> bool:

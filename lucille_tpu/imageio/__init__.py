@@ -1,6 +1,6 @@
 """Image IO: Radiance RGBE (.hdr), PFM, PNG preview.
 
-TPU-native replacement for lucille's src/imageio layer (rgbe.c RGBE codec,
+JAX replacement for lucille's src/imageio layer (rgbe.c RGBE codec,
 image_loader.c extension dispatch — SURVEY.md section 2.7).
 """
 

@@ -1,6 +1,6 @@
 """Light sources: dome/distant/point/area/IBL/sunsky.
 
-TPU-native replacement for lucille's light stack (src/render/light.{c,h},
+JAX replacement for lucille's light stack (src/render/light.{c,h},
 src/render/ibl.c, src/render/sunsky.c — SURVEY.md section 2.4).
 """
 

@@ -183,7 +183,7 @@ class EnvMap:
             except KeyError as e:
                 # a VALID npz missing the expected arrays is a caller
                 # error, not a text sisfile — name the missing key
-                # instead of parsing zip bytes as text (ADVICE r4)
+                # instead of parsing zip bytes as text
                 raise ValueError(
                     f"{path}: npz sisfile is missing array {e}; expected "
                     "'dirs' (N,3) and 'rgb' (N,3)"

@@ -10,7 +10,7 @@ Capability map to src/render/ibl.c (selected per light by the RIB token
 - ``structured``             -> precomputed SIS directions from sisgen
   (tools_tpu/sisgen.py; reference tools/sis + light->sisfile)
 - ``bruteforce`` (ibl.c:395) -> integrate every env texel (reference
-  ground-truth path; here a dense masked sum — regular VPU work)
+  ground-truth path; here a dense masked sum — regular elementwise work)
 
 All samplers return (B, 3) incident radiance estimates for shading
 points P with normals N, shadowed by any_hit wavefronts.

@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lucille_tpu.accel.dispatch import any_hit
+from lucille_tpu.accel.dispatch import any_hit, hemisphere_occlusion
 from lucille_tpu.lights.tables import (
     LIGHT_AREA,
     LIGHT_DISTANT,
@@ -58,9 +58,9 @@ def sample_area_light(light, u):
 
 
 def _hemisphere_occlusion(scene, P, N, key, nsamples: int, active):
-    """Stratified hemisphere occlusion COUNT via the fused AO kernels
-    (pallas_ao megakernel / cone-tiled tile BVH), or None when no fused
-    path serves this scene/wavefront.  Same estimator family as the
+    """Stratified hemisphere occlusion COUNT via the fused AO gathers
+    (accel/dispatch.hemisphere_occlusion), or None when no fused path
+    serves this scene/wavefront.  Same estimator family as the
     cosweight loop below (stratified instead of independent samples)."""
     import math
 
@@ -80,24 +80,8 @@ def _hemisphere_occlusion(scene, P, N, key, nsamples: int, active):
     )
     b0, b1, b2 = ortho_basis(N)
     P_off = P + N * scene.eps
-    if scene.accel == "pallas":
-        from lucille_tpu.accel.pallas_ao import (
-            MAX_TRIS_FOR_MEGAKERNEL,
-            pallas_ao_occlusion,
-        )
-
-        if scene.tri_v0.shape[0] <= MAX_TRIS_FOR_MEGAKERNEL:
-            return pallas_ao_occlusion(
-                scene, P_off, b0, b1, b2, hit, key, nt, nph
-            )
-    if scene.accel == "pbvh" and scene.n_nodes > 0:
-        from lucille_tpu.accel.pallas_bvh import pallas_bvh_ao_occlusion
-
-        occ, _stats = pallas_bvh_ao_occlusion(
-            scene, P_off, b0, b1, b2, hit, key, nt, nph
-        )
-        return occ
-    return None
+    fused = hemisphere_occlusion(scene, P_off, b0, b1, b2, hit, key, nt, nph)
+    return None if fused is None else fused[0]
 
 
 def light_contribution(scene, light, P, N, key, nsamples: int = 1,
@@ -106,7 +90,7 @@ def light_contribution(scene, light, P, N, key, nsamples: int = 1,
     E = Li * cos / pdf, shadowed.  Returns (B, 3).
 
     active: optional live-lane mask — shadow wavefronts compact dead
-    lanes away on the dense Pallas path (accel/dispatch.py)."""
+    lanes away on the dense kernel path (accel/dispatch.py)."""
     B = P.shape[0]
     col = jnp.asarray(light.color, jnp.float32) * light.intensity
 

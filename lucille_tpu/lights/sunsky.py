@@ -66,6 +66,16 @@ def _xyz_to_rgb_cie(xyz: np.ndarray) -> np.ndarray:
     return _XYZ2RGB_CIE @ np.asarray(xyz)
 
 
+def _matmul(xp, a, b):
+    """a @ b, in full f32 when xp is jax.numpy (a GPU f32 matmul may
+    otherwise run in TF32; the golden sky parity is 0.1%)."""
+    if xp is np:
+        return a @ b
+    import jax
+
+    return xp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 @dataclass
 class PreethamSunSky:
     """Sun + sky parameter block (reference ri_sunsky_t).
@@ -229,11 +239,11 @@ class PreethamSunSky:
             + M1[..., None] * xp.asarray(S1)[None]
             + M2[..., None] * xp.asarray(S2)[None]
         )
-        xyz0 = spec @ xp.asarray(CIE10_W)  # (..., 3), unnormalized
+        xyz0 = _matmul(xp, spec, xp.asarray(CIE10_W))  # (..., 3), unnormalized
         ly = xyz0[..., 1]
         ly = xp.where(xp.abs(ly) > 1e-9, ly, 1.0)
         XYZ = xyz0 * (Y * 1000.0 / ly)[..., None]
-        rgb = XYZ @ xp.asarray(_XYZ2RGB_CIE.T)
+        rgb = _matmul(xp, XYZ, xp.asarray(_XYZ2RGB_CIE.T))
         rgb = xp.maximum(rgb, 0.0)
         above = (cz > 0.0)[..., None]
         return xp.where(above, rgb, xp.zeros_like(rgb))

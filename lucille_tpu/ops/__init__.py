@@ -1,6 +1,6 @@
 """Math ops: vectors, matrices, colorimetry, noise.
 
-TPU-native replacement for lucille's math substrate (src/base/vector.h,
+JAX replacement for lucille's math substrate (src/base/vector.h,
 matrix.c, quaternion.c; src/render/spectrum.c, specrend.c, noise.c).
 
 Device math is float32 SoA — arrays of shape (..., 3) — instead of the

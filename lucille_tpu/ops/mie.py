@@ -11,7 +11,7 @@ water medium).
 
 The recurrences are sequential in the expansion order n and micro-sized
 (M ~ x + 4.3 x^(1/3)), so this is a HOST-side f64 table build — numpy
-complex128, vectorized over theta — whose output feeds the TPU as a
+complex128, vectorized over theta — whose output feeds the device as a
 (resolution,) lookup row: `phase_lookup` turns cos(theta) into a phase
 value inside any jitted volume/SSS integrand (transport/sss.py's
 mie_phase option).

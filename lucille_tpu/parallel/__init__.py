@@ -1,6 +1,6 @@
 """Scale-out: device meshes and sharded tile rendering.
 
-TPU-native replacement for lucille's parallel substrate (SURVEY.md
+JAX replacement for lucille's parallel substrate (SURVEY.md
 section 2.8): the pthread bucket queue (render.c:1043-1207) and the MPI
 byte-collective layer (src/base/parallel.c:62-233) both collapse into ONE
 mechanism here — static tile sharding over a `jax.sharding.Mesh` with

@@ -1,6 +1,6 @@
 """Multi-host process bring-up over jax.distributed.
 
-The TPU-native counterpart of the reference's typed MPI facade
+The counterpart of the reference's typed MPI facade
 (src/base/parallel.c:62-233):
 
     ri_parallel_init      (parallel.c:62)  -> initialize_distributed()
@@ -13,7 +13,12 @@ The TPU-native counterpart of the reference's typed MPI facade
 Like the reference built without WITH_MPI (parallel.c:73-78, single-task
 no-op fallback), single-process runs skip bring-up entirely and every
 query degrades gracefully to the one-task answer — so the whole test
-suite runs multi-host-shaped code without a pod (SURVEY.md section 4).
+suite runs multi-host-shaped code on one machine (SURVEY.md section 4).
+
+One process per card: a JAX process reserves most of a card's memory
+when it first touches it, so processes sharing a host must each claim a
+different card.  initialize_distributed gives process p the local card
+``p % local_device_count`` unless the caller names the cards.
 """
 
 from __future__ import annotations
@@ -33,6 +38,11 @@ def initialize_distributed(
 
     A single-process invocation (no coordinator, num_processes absent or
     1) is a no-op returning False — the WITH_MPI=undef build.
+
+    local_device_ids: the cards this process may use.  Default: one card,
+    chosen from process_id, when the host has more than one visible GPU
+    (CUDA_VISIBLE_DEVICES or the driver's count), so co-located
+    processes never all claim every card.
     """
     global _initialized
     if coordinator is None and (num_processes is None or int(num_processes) <= 1):
@@ -46,11 +56,32 @@ def initialize_distributed(
         kwargs["num_processes"] = int(num_processes)
     if process_id is not None:
         kwargs["process_id"] = int(process_id)
+    if local_device_ids is None and process_id is not None:
+        n_local = _local_gpu_count()
+        if n_local > 1:
+            local_device_ids = [int(process_id) % n_local]
     if local_device_ids is not None:
         kwargs["local_device_ids"] = local_device_ids
     jax.distributed.initialize(**kwargs)
     _initialized = True
     return True
+
+
+def _local_gpu_count() -> int:
+    """Visible GPUs on this host, read without starting a JAX backend
+    (jax.distributed.initialize must come first)."""
+    import os
+
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if vis is not None:
+        return len([v for v in vis.split(",") if v.strip()])
+    if not os.path.isdir("/dev"):
+        return 0
+    # the driver's per-card device nodes: /dev/nvidia0, /dev/nvidia1, ...
+    return sum(
+        1 for d in os.listdir("/dev")
+        if d.startswith("nvidia") and d[6:].isdigit()
+    )
 
 
 def finalize_distributed() -> None:

@@ -1,6 +1,6 @@
 """Render manager: tiles, film, tonemap, frame orchestration.
 
-TPU-native replacement for lucille's render core orchestration
+JAX replacement for lucille's render core orchestration
 (src/render/render.c): the bucket queue + worker threads
 (render.c:1043-1207) become a statically-shaped, jit-compiled tile kernel
 invoked over a host-side tile list (spiral/scanline/Z/Hilbert order for

@@ -2,7 +2,7 @@
 
 Equivalent capability to the reference's bucket orders
 (src/render/spiral.c:42,69 — the default, render.c:198; zorder2d.c:106;
-hilbert2d.c) — pure host-side index math.  On TPU tiles are not a work
+hilbert2d.c) — pure host-side index math.  Here tiles are not a work
 queue (no queue exists — SURVEY.md section 2.8): ordering only controls
 progressive-display aesthetics and, for multi-device runs, which tiles
 land on which device.

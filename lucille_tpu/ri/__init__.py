@@ -1,6 +1,6 @@
 """RenderMan Interface layer: graphics-state machine and scene description.
 
-TPU-native replacement for lucille's `src/ri` layer (SURVEY.md section 2.2):
+JAX replacement for lucille's `src/ri` layer (SURVEY.md section 2.2):
 the Ri* API state machine with transform/attribute stacks (context.c:20-53),
 options (option.c), the RenderMan camera (camera.c:30-89), shader/material
 binding (attribute.c), light sources (lightsource.c), and geometry

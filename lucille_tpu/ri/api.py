@@ -1,6 +1,6 @@
 """The RenderMan Interface state machine.
 
-TPU-native equivalent of lucille's `src/ri` graphics-state context
+JAX equivalent of lucille's `src/ri` graphics-state context
 (context.c:20-53): transform and attribute stacks, options, camera state,
 display lists, declares, light sources, geometry conversion — driven either
 by the RIB parser (`lucille_tpu.rib.parser`) or programmatically as a

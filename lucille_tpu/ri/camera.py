@@ -14,7 +14,7 @@ Faithful to the reference semantics (src/ri/camera.c):
 
 Ray *generation* happens on device: `generate_rays` is pure jnp over
 float32 pixel-coordinate arrays and traces under jit, so a whole tile of
-rays is produced in one fused VPU pass instead of a per-pixel call.
+rays is produced in one fused elementwise pass instead of a per-pixel call.
 """
 
 from __future__ import annotations
@@ -149,9 +149,9 @@ class Camera:
             return org, d / jnp.maximum(n, 1e-20)
 
         # Row-vector transform spelled as explicit FMAs: a (..., 3) @ (3, 3)
-        # matmul would be routed to the MXU, whose default f32 precision is
-        # bf16-based and costs ~1e-3 in ray direction.  Explicit VPU
-        # arithmetic keeps full f32 precision and fuses into the ray setup.
+        # matmul at default precision may run in reduced precision (bf16
+        # passes or TF32), which costs ~1e-3 in ray direction.  Explicit
+        # elementwise arithmetic keeps full f32 and fuses into ray setup.
         def xform(x, y, z, with_trans=True):
             ox = x * rot[0, 0] + y * rot[1, 0] + z * rot[2, 0]
             oy = x * rot[0, 1] + y * rot[1, 1] + z * rot[2, 1]

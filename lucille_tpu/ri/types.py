@@ -19,11 +19,11 @@ import numpy as np
 # Accel methods (reference accel.h / option.c:116 — default BVH; the
 # reference's "grid" intersect is a stub, ugrid.c:376-385, so our second
 # method is the dense brute-force intersector, which doubles as the
-# correctness oracle and is the faster choice for small scenes on TPU).
+# correctness oracle).
 ACCEL_BVH = "bvh"
 ACCEL_BRUTEFORCE = "bruteforce"
 ACCEL_MXU = "mxu"  # dense matmul intersector (accel/mxu.py)
-ACCEL_AUTO = "auto"  # mxu below a triangle budget, bvh above
+ACCEL_AUTO = "auto"  # base/backend.choose_accel decides
 ACCEL_GRID = "grid"  # accepted for RIB compatibility; maps to bruteforce
 
 
@@ -57,9 +57,9 @@ class RenderOptions:
     max_ray_depth: int = 8
     gather_nsamples: int = 64  # AO/final-gather rays (option.c:148)
     narealight_rays: int = 16
-    # default 'auto': the dense MXU intersector below AUTO_MXU_MAX_TRIS
-    # triangles (regular matmul work beats divergent traversal on TPU),
-    # the BVH above it.  RIB Option "raytrace" "accel_method" forces one
+    # default 'auto': base/backend.choose_accel picks per platform and
+    # triangle count (dense kernels below a budget, the BVH above it).
+    # RIB Option "raytrace" "accel_method" forces one
     # (reference default is BVH, option.c:116 — honored when requested).
     accel_method: str = ACCEL_AUTO
     # lighting switches (option.c:111-118)
@@ -73,7 +73,7 @@ class RenderOptions:
     pixel_filter: str = "box"
     pixel_filter_width: tuple = (2.0, 2.0)
     # misc
-    nthreads: int = 0  # unused on TPU; kept for CLI compatibility
+    nthreads: int = 0  # unused (no host threads); kept for CLI compatibility
     bgcolor: tuple = (0.0, 0.0, 0.0)
     searchpaths: list = field(default_factory=lambda: ["."])
     # ad-hoc implementation-specific KV store (option.h:131-134)
@@ -81,7 +81,7 @@ class RenderOptions:
     # frame-level imager shader (RiImager; executed as a film post-pass)
     imager: Optional[str] = None
     imager_params: dict = field(default_factory=dict)
-    # TPU-native additions
+    # additions over the reference
     tile_size: int = 64
     bucket_order: str = "spiral"  # spiral | scanline | zorder | hilbert
 

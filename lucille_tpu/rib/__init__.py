@@ -1,6 +1,6 @@
 """RIB front-end: lexer and parser.
 
-TPU-native replacement for lucille's flex/bison front-end
+JAX replacement for lucille's flex/bison front-end
 (src/lsh/lexrib.l, src/lsh/parserib.y): a hand-written tokenizer and a
 table-driven command parser that emits calls into the Ri state machine
 (`lucille_tpu.ri.api`).  Supports the same surface: the ~45 RIB commands of

@@ -1,6 +1,6 @@
 """Sampling: quasi-Monte-Carlo sequences and PRNG key discipline.
 
-TPU-native replacement for lucille's sampling stack:
+JAX replacement for lucille's sampling stack:
 
 - src/render/qmc.c — Halton, Faure permutations, generalized scrambled
   Halton/Hammersley, Fibonacci lattice  → `lucille_tpu.sampling.qmc`

@@ -10,7 +10,7 @@ For an ``xsamples x ysamples`` grid the sampler produces, per subpixel
 "instance number" used to seed subsequent low-discrepancy dimensions.
 
 All offsets are precomputed on the host (they depend only on the sampling
-rate) and uploaded once as small constant arrays — the TPU kernel then just
+rate) and uploaded once as small constant arrays — the device kernel then just
 adds them to integer pixel coordinates.  This keeps the hot path pure
 arithmetic with no tables-in-loop.
 """

@@ -7,7 +7,7 @@ qmc.c:380,428, Fibonacci lattice qmc.c:545) after Keller, "Strictly
 Deterministic Sampling Methods in Computer Graphics" (2001) and Faure,
 "Good permutations for extreme discrepancy" (1992).
 
-Design for TPU: these sequences are *deterministic* functions of integer
+Design for the device: these sequences are *deterministic* functions of integer
 indices, so they are precomputed host-side into flat float32 tables (or
 evaluated with vectorized NumPy) and uploaded as constants; kernels index
 them with cheap integer arithmetic instead of running digit-extraction

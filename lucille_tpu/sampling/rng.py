@@ -2,7 +2,7 @@
 
 The reference uses per-thread MT19937 streams (src/base/random.c:211,
 `randomMT2(thread_id)`) to avoid contention and false sharing.  The
-TPU-native equivalent is JAX's counter-based threefry: a key folded over
+device-side equivalent is JAX's counter-based threefry: a key folded over
 logical coordinates gives every pixel/sample/bounce an independent,
 reproducible stream with no cross-device coordination — the same property
 the per-thread streams buy on CPU, but deterministic regardless of

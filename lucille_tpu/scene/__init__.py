@@ -1,6 +1,6 @@
 """Scene compilation: host SceneDescription → padded device SoA arrays.
 
-TPU-native replacement for lucille's scene layer (src/render/scene.c:
+JAX replacement for lucille's scene layer (src/render/scene.c:
 geom list + light list + accel build at ri_scene_setup, scene.c:85-98).
 Instead of linked lists of ri_geom_t, the whole scene is flattened once
 into statically-shaped float32 structure-of-arrays buffers (triangles,

@@ -1,10 +1,10 @@
 """Scene compiler: SceneDescription → SceneArrays.
 
-The TPU-native equivalent of ri_scene_setup + ri_bvh_build's
+The device-side equivalent of ri_scene_setup + ri_bvh_build's
 create_triangle_list (src/render/scene.c:85-98, bvh.c:1737): flattens all
 geometry into triangle SoA, pre-gathers per-corner shading attributes,
 builds the material table, computes the scene bbox and a scene-relative
-epsilon, and (by default) builds the BVH.
+epsilon, and builds the accelerator that base/backend.py chooses.
 
 Padding: triangle count is padded to a multiple of PAD_MULTIPLE with
 degenerate (all-zero) triangles whose Moller-Trumbore determinant is 0 —
@@ -15,18 +15,14 @@ from __future__ import annotations
 
 import numpy as np
 
+from lucille_tpu.base import backend
 from lucille_tpu.base.log import LOG_INFO, log
 from lucille_tpu.base.timer import get_timer
-from lucille_tpu.ri.types import ACCEL_BVH, SceneDescription
+from lucille_tpu.ri.types import SceneDescription
 from lucille_tpu.scene.types import SceneArrays
 
 PAD_MULTIPLE = 256  # keeps brute-force chunks and BVH leaves lane-aligned
 EPS_SCALE = 1.0e-4  # scene-relative ray-offset epsilon (f32-safe)
-# auto accel crossover: the dense Pallas megakernel (O(tiles) per block,
-# origin-hoisted tests) wins on small scenes; the tile-BVH kernels
-# (pallas_bvh.py, O(log) node walks) win beyond
-AUTO_DENSE_MAX_TRIS = 16384
-
 
 def _morton_order(v0, v1, v2, bbmin, bbmax):
     """Stable sort order of triangles along the Morton (Z-order) curve of
@@ -157,26 +153,10 @@ def compile_scene(
     # ---------------- BVH ------------------------------------------------
     accel_method = desc.options.accel_method
     if build_bvh:
-        # callers that need node arrays regardless of the accel heuristic
+        # callers that need node arrays regardless of the accel choice
         # (the BVH visualizer's diagnostics path, tools_tpu/bvh_viz.py)
         accel_method = "pbvh"
-    if accel_method == "auto":
-        import jax
-
-        backend = jax.default_backend()
-        if backend in ("cpu",):
-            accel_method = "mxu"  # XLA matmul path for the CPU test mesh
-        elif n_tris <= AUTO_DENSE_MAX_TRIS:
-            # fused dense Pallas kernel (60 vs 31 Mrays/s on the bench
-            # scene vs the MXU path)
-            accel_method = "pallas"
-        else:
-            accel_method = "pbvh"
-    if accel_method == ACCEL_BVH:
-        # "bvh" requests the production accelerator: the Pallas tile-BVH
-        # (the reference's workhorse bvh.c:1093 rebuilt TPU-shaped);
-        # interpret mode serves CPU test runs
-        accel_method = "pbvh"
+    accel_method = backend.choose_accel(accel_method, n_tris)
     if accel_method == "pbvh" and n_tris > 0:
         from lucille_tpu.accel.pallas_bvh import build_tile_bvh
 
@@ -213,26 +193,19 @@ def compile_scene(
         node_skip = nmeta[0]
         node_first = nmeta[1]
         node_count = nmeta[2]
-        leaf_tiles_max = int(nmeta[2].max()) if n_nodes else 1
         accel = "pbvh"
     else:
-        leaf_tiles_max = 1
         node_bbmin = np.zeros((1, 3))
         node_bbmax = np.zeros((1, 3))
         node_skip = np.ones(1, dtype=np.int32)
         node_first = np.zeros(1, dtype=np.int32)
         node_count = np.zeros(1, dtype=np.int32)
         n_nodes = 0
-        if accel_method in ("grid", "ugrid"):
-            accel = "ugrid"
-        elif accel_method in ("mxu", "pallas"):
-            accel = accel_method
-        else:
-            accel = "bruteforce"
+        accel = "bruteforce" if accel_method == "pbvh" else accel_method
         if accel == "pallas" and n_tris > 1:
-            # Morton-sort triangles by centroid so the Pallas kernels'
-            # 128-triangle tiles are spatially tight — that is what makes
-            # the per-(ray block, tile) AABB culling effective
+            # Morton-sort triangles by centroid so the dense kernels'
+            # triangle tiles are spatially tight — that is what makes the
+            # per-(ray block, tile) AABB culling effective
             order = _morton_order(v0, v1, v2, bbmin, bbmax)
             v0, v1, v2 = v0[order], v1[order], v2[order]
             geom_id = geom_id[order]
@@ -351,5 +324,4 @@ def compile_scene(
         n_nodes=n_nodes,
         leaf_size=leaf_size,
         accel=accel,
-        leaf_tiles_max=leaf_tiles_max,
     )

@@ -80,7 +80,6 @@ class SceneArrays:
     leaf_size: int = 8
     accel: str = "bvh"
     grid_res: int = 0  # cells per axis (cubic)
-    leaf_tiles_max: int = 1  # max 128-tri tiles in any tile-BVH leaf
 
     _ARRAY_FIELDS = (
         "tri_v0", "tri_e1", "tri_e2", "geom_id",
@@ -93,7 +92,7 @@ class SceneArrays:
     )
     _STATIC_FIELDS = (
         "n_tris", "n_pad", "n_geoms", "n_nodes", "leaf_size", "accel",
-        "grid_res", "leaf_tiles_max",
+        "grid_res",
     )
 
     def tree_flatten(self):

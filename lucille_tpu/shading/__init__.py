@@ -1,6 +1,6 @@
 """Shading: BRDFs, reflection utilities, and the JAX shader system.
 
-TPU-native replacement for lucille's shading stack (src/render/brdf.c,
+JAX replacement for lucille's shading stack (src/render/brdf.c,
 reflection.c, shader.c + the sl2c/LLVM RSL toolchain — SURVEY.md sections
 2.4/2.6).  Shaders are JAX-traced Python functions over a pytree of shader
 globals — jit IS the shader JIT the reference's LLVM engine aspired to

@@ -94,6 +94,7 @@ def apply_atmosphere(ci, ray_len, P, hit, name, params, searchpaths=None,
     hit: (B,) bool — escaped rays keep their radiance; dirn: optional
     (B, 3) eye directions (the "miefog" phase needs the eye/sun angle).
     """
+    import jax
     import jax.numpy as jnp
 
     if not name:
@@ -124,7 +125,9 @@ def apply_atmosphere(ci, ray_len, P, hit, name, params, searchpaths=None,
         d = dirn / jnp.maximum(
             jnp.linalg.norm(dirn, axis=-1, keepdims=True), 1e-20
         )
-        cosg = d @ jnp.asarray(sundir)
+        # f32 products, never TF32 (a GPU f32 matmul may use it by default)
+        cosg = jnp.matmul(d, jnp.asarray(sundir),
+                          precision=jax.lax.Precision.HIGHEST)
         res = table.shape[0]
         theta = jnp.arccos(jnp.clip(cosg, -1.0, 1.0))
         f = theta / (2.0 * jnp.pi) * res

@@ -1,6 +1,6 @@
 """RSL (RenderMan Shading Language) subset compiler → JAX shader functions.
 
-The TPU-native successor of lucille's TWO shader compilers:
+The JAX successor of lucille's TWO shader compilers:
 
 - ``sl2c`` (src/sl/: RSL -> C translated via yacc grammar parsesl.y,
   compiled to a .so and dlopened, attribute.c:372-428), and

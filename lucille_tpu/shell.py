@@ -2,7 +2,7 @@
 
 Equivalent capability to lucille's readline REPL (src/lsh/lsh.c:55-61):
 commands ``file/render/quit/nsamples/set/stat/maxdepth`` plus a few
-TPU-era conveniences.  Invoked by `python -m lucille_tpu.cli` with no
+conveniences.  Invoked by `python -m lucille_tpu.cli` with no
 scene argument, or via `python -m lucille_tpu.shell`.
 """
 

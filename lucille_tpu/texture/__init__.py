@@ -1,6 +1,6 @@
 """Texture system: atlas-resident fp32 textures with filtered fetch.
 
-TPU-native replacement for lucille's texture stack (src/render/texture.c,
+JAX replacement for lucille's texture stack (src/render/texture.c,
 texture_loader.c — SURVEY.md section 2.4).
 """
 

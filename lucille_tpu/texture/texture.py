@@ -7,9 +7,9 @@ Capability map to the reference:
 - IBL angular-map / lat-long fetch (texture.c:238, texture.h:100-105)
   -> `ibl_fetch_angular` / `ibl_fetch_latlong`;
 - mipmap generation (texture_loader.c:368-403) -> `build_mipmaps`
-  (successive 2x box reductions — a reduce_window on the VPU); the
+  (successive 2x box reductions — one reduce_window each); the
   reference's *blocked mipmap disk format* (texture_loader.c:8-24) is a
-  CPU cache-locality trick with no TPU analog: HBM textures are kept
+  CPU cache-locality trick with no device analog: device textures are kept
   dense and fetched with vectorized gathers instead;
 - Summed-Area Table (texture.h:45-60) -> `summed_area_table`
   (two cumsums), used by structured importance sampling (tools sisgen).

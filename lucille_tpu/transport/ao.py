@@ -29,14 +29,19 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from lucille_tpu.accel.dispatch import any_hit, closest_hit
+from lucille_tpu.accel.dispatch import (
+    any_hit,
+    closest_hit,
+    hemisphere_occlusion,
+    hemisphere_sky,
+)
 
 
 def ortho_basis(n):
     """Per-ray orthonormal basis from normal.
 
     Capability-equivalent of ri_ortho_basis (reflection.c:312-331), with
-    one TPU-motivated deviation: the reference picks the provisional up
+    one deliberate deviation: the reference picks the provisional up
     axis as "first axis with |n_i| < 0.6", a branch that flips between
     neighboring lanes and scatters the basis AZIMUTH almost randomly
     across a coherent block.  Any orthonormal frame leaves the cosine-
@@ -128,43 +133,14 @@ def ao_radiance(
             sunsky_light, sun_lights, background, textures, B,
         )
 
-    from lucille_tpu.accel.pallas_ao import (
-        MAX_TRIS_FOR_MEGAKERNEL,
-        pallas_ao_occlusion,
+    fused = hemisphere_occlusion(
+        scene, P_off, b0, b1, b2, hit, key, ntheta, nphi
     )
-
-    use_megakernel = (
-        scene.accel == "pallas"
-        and scene.tri_v0.shape[0] <= MAX_TRIS_FOR_MEGAKERNEL
-    )
-    if use_megakernel:
-        # fused gather: strata loop + MT + reduction in ONE Pallas kernel
-        # (triangles VMEM-resident across all strata; pallas_ao.py)
-        occ = pallas_ao_occlusion(
-            scene, P_off, b0, b1, b2, hit, key, ntheta, nphi
-        )
-        return _finish(
-            scene, res, hit, occ, nsamples, background, textures, B
-        )
-    if scene.accel == "pbvh" and scene.n_nodes > 0:
-        # large scenes: fused gather with per-(block, stratum) tile-BVH
-        # traversal (pallas_bvh.py) — the production accelerator
-        from lucille_tpu.accel.pallas_bvh import (
-            TC, _ah_block, _scene_npad, _use_hbm,
-        )
-        from lucille_tpu.accel.pallas_bvh import pallas_bvh_ao_occlusion
-
-        occ, gstats = pallas_bvh_ao_occlusion(
-            scene, P_off, b0, b1, b2, hit, key, ntheta, nphi
-        )
-        # gather-ray traversal/test/mailbox counters join the eye-ray
-        # ones (the reference counts BOTH, raytrace.c:43 + render.h:40-47)
-        extra = {
-            "ntrav": gstats[0],
-            "ntests": gstats[1]
-            * (TC * _ah_block(_use_hbm(_scene_npad(scene)))),
-            "nmiss": gstats[2],
-        }
+    if fused is not None:
+        # one fused gather (accel/pallas_ao.py, accel/pallas_bvh.py); its
+        # counters join the eye-ray ones (the reference counts both,
+        # raytrace.c:43 + render.h:40-47)
+        occ, extra = fused
         return _finish(
             scene, res, hit, occ, nsamples, background, textures, B,
             extra=extra,
@@ -206,28 +182,10 @@ def _gather_sunsky(scene, res, hit, P_off, b0, b1, b2, key, ntheta, nphi,
     nsamples = ntheta * nphi
     sky = sunsky_light.sunsky
 
-    from lucille_tpu.accel.pallas_ao import MAX_TRIS_FOR_MEGAKERNEL
-
-    if (
-        scene.accel == "pallas"
-        and scene.tri_v0.shape[0] <= MAX_TRIS_FOR_MEGAKERNEL
-    ):
-        # megakernel path: the fused gather returns a per-stratum
-        # occlusion BITMASK; the exact in-kernel directions are
-        # recomputed here (same per-lane jitter + R2 CP rotation) and
-        # each unoccluded stratum weighted by sky radiance — the sunsky
-        # gather rides the same kernel as plain AO (round-4 fix: this
-        # used to fall back to the wavefront scan, ~5x slower)
-        col = _sunsky_megakernel(
-            scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, sky, B
-        )
-    elif scene.accel == "pbvh" and scene.n_nodes > 0:
-        from lucille_tpu.accel.pallas_bvh import pallas_bvh_ao_sunsky
-
-        col, _gstats = pallas_bvh_ao_sunsky(
-            scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, sky
-        )
-    else:
+    col = hemisphere_sky(
+        scene, P_off, b0, b1, b2, hit, key, ntheta, nphi, sky
+    )
+    if col is None:
         strata = jnp.arange(nsamples, dtype=jnp.int32)
 
         def step(col, si):
@@ -277,59 +235,9 @@ def _gather_sunsky(scene, res, hit, P_off, b0, b1, b2, key, ntheta, nphi,
         ),
         "ntests": res["ntests"],
         "ntrav": res["ntrav"],
-        "nmiss": 0,
         "t": res["t"],
     }
     return radiance, aux
-
-
-def _sunsky_megakernel(scene, P_off, b0, b1, b2, hit, key, ntheta, nphi,
-                       sky, B):
-    """Sky-radiance gather through the fused AO megakernel's per-stratum
-    occlusion bitmask (pallas_ao_occlusion_bits).  Directions are
-    recomputed OUTSIDE the kernel with the identical per-lane jitter and
-    R2 Cranley-Patterson rotation, so stratum s's visibility bit pairs
-    with exactly the direction the kernel traced."""
-    from lucille_tpu.accel.pallas_ao import (
-        _R2_A1,
-        _R2_A2,
-        pallas_ao_occlusion_bits,
-    )
-
-    _occ, bits, u01 = pallas_ao_occlusion_bits(
-        scene, P_off, b0, b1, b2, hit, key, ntheta, nphi
-    )
-    nsamples = ntheta * nphi
-    strata = jnp.arange(nsamples, dtype=jnp.int32)
-
-    def step(col, s):
-        sf = s.astype(jnp.float32)
-        sh0 = sf * _R2_A1
-        sh1 = sf * _R2_A2
-        u0 = u01[0] + (sh0 - jnp.floor(sh0))
-        u0 = u0 - jnp.floor(u0)
-        u1 = u01[1] + (sh1 - jnp.floor(sh1))
-        u1 = u1 - jnp.floor(u1)
-        fi = (s % ntheta).astype(jnp.float32)
-        fj = (s // ntheta).astype(jnp.float32)
-        z0 = (fi + u0) * (1.0 / ntheta)
-        z1 = (fj + u1) * (1.0 / nphi)
-        cos_t = jnp.sqrt(z0)
-        phi = (2.0 * jnp.pi) * z1
-        lx = jnp.cos(phi) * cos_t
-        ly = jnp.sin(phi) * cos_t
-        lz = jnp.sqrt(jnp.maximum(1.0 - z0, 0.0))
-        wdir = lx[..., None] * b0 + ly[..., None] * b1 + lz[..., None] * b2
-        row = jax.lax.dynamic_index_in_dim(
-            bits, s // 32, axis=0, keepdims=False
-        )
-        occluded = ((row >> (s % 32)) & 1) == 1
-        vis = (~occluded) & hit
-        d_sky = jnp.stack([wdir[:, 0], wdir[:, 2], wdir[:, 1]], axis=-1)
-        return col + vis[:, None] * sky.sky_rgb(d_sky), None
-
-    col, _ = jax.lax.scan(step, jnp.zeros((B, 3), jnp.float32), strata)
-    return col
 
 
 def _modulate(scene, res, hit, radiance, textures):
@@ -355,7 +263,7 @@ def _finish(scene, res, hit, occ, nsamples, background, textures, B,
             extra=None):
     """Shared epilogue: occlusion count -> radiance + texture modulation
     + statistics (ambientocclusion.c:135-150, 393-400).  `extra` adds
-    gather-phase counters (ntrav/ntests/nmiss) to the eye-ray ones."""
+    gather-phase counters (ntrav/ntests) to the eye-ray ones."""
     lo = (nsamples - occ) / nsamples  # m = 1.0 (ambientocclusion.c:146)
     radiance = jnp.where(hit, lo, background)[..., None] * jnp.ones(
         (1, 3), jnp.float32
@@ -370,7 +278,6 @@ def _finish(scene, res, hit, occ, nsamples, background, textures, B,
         "nrays": B + jnp.sum(hit.astype(jnp.int32)) * nsamples,
         "ntests": res["ntests"] + extra.get("ntests", 0),
         "ntrav": res["ntrav"] + extra.get("ntrav", 0),
-        "nmiss": extra.get("nmiss", 0),
         "t": res["t"],
     }
     return radiance, aux

@@ -7,7 +7,7 @@ Every geometry's Surface binding (RSL source compiled by shading/sl.py,
 or a built-in from shading/shader.py) is evaluated over the hit
 wavefront.
 
-TPU lowering of per-geometry dispatch: shaders are Python-level
+Device lowering of per-geometry dispatch: shaders are Python-level
 constants, so the (small) set of distinct shaders is evaluated
 masked-dense — each shader runs on the WHOLE wavefront and lanes select
 their geometry's result.  No divergence, no gather of code pointers; for

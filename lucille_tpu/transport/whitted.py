@@ -9,7 +9,7 @@ Deviation by design (documented): where the reference's recursion forks
 into BOTH reflection and refraction branches, a wavefront lane follows ONE
 stochastically-selected branch weighted by the Fresnel coefficients
 (standard GPU/wavefront practice) — the estimator's expectation is the
-same; variance moves into the sample dimension where the TPU is fast.
+same; variance moves into the sample dimension, which is wide and cheap.
 
 Wavefront compaction: bounces past the first run under ``lax.cond`` on
 ``any(active)`` — when every lane has terminated (a matte scene kills all

@@ -3,7 +3,7 @@
 // The host-side hot spot of scene compilation: the reference builds its
 // BVH in C (src/render/bvh.c bvh_construct, SAH binning bvh.c:1329/1572/
 // 1231); this is the same algorithm re-written for the skip-link flat
-// layout that the TPU traversal consumes (lucille_tpu/accel/bvh.py
+// layout that the wavefront traversal consumes (lucille_tpu/accel/bvh.py
 // documents the layout).  Exposed through a plain C ABI for ctypes; the
 // NumPy builder remains as a pure-Python fallback with identical output
 // semantics (tests assert both produce valid, equivalent trees).

@@ -66,12 +66,13 @@ class TestRayGen:
         assert not np.allclose(o[0], o[1])
 
     def test_ao_scene_camera_faces_geometry(self):
-        """Integration: the reference AO scene's camera must look at its bbox."""
+        """Integration: the in-repo AO scene's camera looks at its bbox."""
         import os
 
-        rib = "/root/reference/examples/ambient_occlusion/ambient_occlusion.rib"
-        if not os.path.exists(rib):
-            pytest.skip("reference unavailable")
+        rib = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "scenes", "ao_objects.rib",
+        )
         from lucille_tpu.rib.parser import parse_rib_file
         from lucille_tpu.ri.api import RiState
 

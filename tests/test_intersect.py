@@ -1,12 +1,20 @@
 """Intersection core tests: Moller-Trumbore, BVH build invariants, and
 BVH-vs-bruteforce parity (the brute-force path is the oracle)."""
 
+import os
+
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 from lucille_tpu.accel.bvh import build_bvh
+
+AO_SCENE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "scenes", "ao_objects.rib",
+)
 
 
 def _random_soup(n, seed=0, spread=5.0, size=0.3):
@@ -79,8 +87,8 @@ class TestBVHBuild:
 class TestParity:
     @pytest.mark.parametrize("seed", [0, 1])
     def test_closest_hit_bvh_matches_bruteforce(self, seed):
-        """The Pallas tile-BVH (interpret mode on CPU) against the
-        brute-force oracle."""
+        """The tile-BVH packet walk (interpret mode on the CPU) against
+        the brute-force oracle."""
         from lucille_tpu.accel import brute_closest_hit
         from lucille_tpu.accel.pallas_bvh import (
             pallas_bvh_closest_hit as bvh_closest_hit,
@@ -108,7 +116,7 @@ class TestParity:
 
     @pytest.mark.parametrize("seed", [0, 5])
     def test_mxu_matmul_matches_bruteforce(self, seed):
-        """The MXU matmul formulation is algebraically identical to direct
+        """The matmul formulation is algebraically identical to direct
         Moller-Trumbore; verify hits, t, u/v and triangle ids."""
         from lucille_tpu.accel.bruteforce import brute_closest_hit
         from lucille_tpu.accel.mxu import mxu_any_hit, mxu_closest_hit
@@ -184,11 +192,6 @@ class TestParity:
 
 class TestReferenceScene:
     def test_ao_scene_parity(self):
-        import os
-
-        rib = "/root/reference/examples/ambient_occlusion/ambient_occlusion.rib"
-        if not os.path.exists(rib):
-            pytest.skip("reference unavailable")
         from lucille_tpu.accel import brute_closest_hit
         from lucille_tpu.accel.pallas_bvh import (
             pallas_bvh_closest_hit as bvh_closest_hit,
@@ -198,7 +201,7 @@ class TestReferenceScene:
         from lucille_tpu.scene.compile import compile_scene
 
         s = RiState()
-        parse_rib_file(rib, s)
+        parse_rib_file(AO_SCENE, s)
         s.scene.options.accel_method = "bvh"
         sc_bvh = compile_scene(s.scene).device_put()
         s.scene.options.accel_method = "bruteforce"
@@ -219,10 +222,9 @@ class TestReferenceScene:
 
 class TestPallasKernel:
     def test_interpret_mode_parity(self):
-        """Fused Pallas intersection kernel vs the brute-force oracle
-        (interpreter mode — compiled mode needs real TPU hardware)."""
-        import jax.numpy as jnp
-
+        """Dense closest-hit kernel vs the brute-force oracle (interpret
+        mode on the CPU; on the GPU the same kernel compiles through
+        Triton and chip_smoke.py checks it at full width)."""
         from lucille_tpu.accel.bruteforce import brute_closest_hit
         from lucille_tpu.accel.pallas_isect import RAY_BLOCK, pallas_closest_hit
 
@@ -235,12 +237,143 @@ class TestPallasKernel:
         d /= np.linalg.norm(d, axis=-1, keepdims=True)
         dirn = jnp.asarray(d, jnp.float32)
         r1 = brute_closest_hit(sc, org, dirn)
-        r2 = pallas_closest_hit(sc, org, dirn, interpret=True)
+        r2 = pallas_closest_hit(sc, org, dirn)
         h = np.asarray(r1["hit"])
         np.testing.assert_array_equal(h, np.asarray(r2["hit"]))
         np.testing.assert_allclose(
             np.asarray(r1["t"])[h], np.asarray(r2["t"])[h], rtol=1e-4
         )
+
+
+def _rays(B, seed, spread=8.0):
+    rng = np.random.default_rng(seed)
+    org = jnp.asarray(rng.uniform(-spread, spread, (B, 3)), jnp.float32)
+    d = rng.normal(size=(B, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return org, jnp.asarray(d, jnp.float32)
+
+
+@pytest.fixture(params=[(32, 8), (64, 32), (128, 16)], ids=lambda p: f"rb{p[0]}-tc{p[1]}")
+def dense_shape(request, monkeypatch):
+    """Run a test at several (rays per program, triangles per tile): the
+    constants are read when the kernel is traced, so compiled traces of
+    other shapes are dropped."""
+    from lucille_tpu.accel import pallas_isect
+
+    rb, tc = request.param
+    monkeypatch.setattr(pallas_isect, "RAY_BLOCK", rb)
+    monkeypatch.setattr(pallas_isect, "TC", tc)
+    jax.clear_caches()
+    yield request.param
+    jax.clear_caches()
+
+
+class TestDenseKernels:
+    """The dense Triton kernels against brute force across block shapes,
+    ragged wavefronts, triangle counts that are not a tile multiple, t
+    windows and live-lane compaction."""
+
+    def test_closest_matches_bruteforce(self, dense_shape):
+        from lucille_tpu.accel.bruteforce import brute_closest_hit
+        from lucille_tpu.accel.pallas_isect import pallas_closest_hit
+
+        v0, v1, v2 = _random_soup(203, seed=60)  # not a tile multiple
+        sc = _scene_from_tris(v0, v1, v2, "pallas")
+        org, dirn = _rays(301, seed=61)  # not a block multiple
+        r1 = brute_closest_hit(sc, org, dirn)
+        r2 = pallas_closest_hit(sc, org, dirn)
+        h = np.asarray(r1["hit"])
+        assert h.any()
+        np.testing.assert_array_equal(h, np.asarray(r2["hit"]))
+        np.testing.assert_array_equal(
+            np.asarray(r1["tri"])[h], np.asarray(r2["tri"])[h]
+        )
+        np.testing.assert_allclose(
+            np.asarray(r1["t"])[h], np.asarray(r2["t"])[h], rtol=1e-5
+        )
+        np.testing.assert_allclose(
+            np.asarray(r1["u"])[h], np.asarray(r2["u"])[h], atol=1e-5
+        )
+
+    def test_any_hit_matches_bruteforce(self, dense_shape):
+        from lucille_tpu.accel.bruteforce import brute_any_hit
+        from lucille_tpu.accel.pallas_isect import pallas_any_hit
+
+        v0, v1, v2 = _random_soup(203, seed=62)
+        sc = _scene_from_tris(v0, v1, v2, "pallas")
+        org, dirn = _rays(301, seed=63)
+        tmax = jnp.asarray(np.random.default_rng(64).uniform(1, 12, 301),
+                           jnp.float32)
+        for tm in (None, tmax):
+            np.testing.assert_array_equal(
+                np.asarray(brute_any_hit(sc, org, dirn, tmax=tm)),
+                np.asarray(pallas_any_hit(sc, org, dirn, tmax=tm)),
+            )
+
+    def test_t_window(self):
+        """tmin and tmax select the triangle at t=5 over the one at t=2."""
+        from lucille_tpu.accel.pallas_isect import (
+            pallas_any_hit,
+            pallas_closest_hit,
+        )
+
+        v0 = np.array([[-1.0, -1.0, 5.0], [-1.0, -1.0, 2.0]])
+        v1 = np.array([[1.0, -1.0, 5.0], [1.0, -1.0, 2.0]])
+        v2 = np.array([[0.0, 1.0, 5.0], [0.0, 1.0, 2.0]])
+        sc = _scene_from_tris(v0, v1, v2, "pallas")
+        org = jnp.zeros((1, 3), jnp.float32)
+        dirn = jnp.asarray([[0.0, 0.0, 1.0]], jnp.float32)
+        assert float(pallas_closest_hit(sc, org, dirn)["t"][0]) == pytest.approx(2.0)
+        r = pallas_closest_hit(sc, org, dirn, tmin=3.0)
+        assert float(r["t"][0]) == pytest.approx(5.0)
+        assert not bool(pallas_closest_hit(sc, org, dirn, tmax=1.5)["hit"][0])
+        assert not bool(pallas_any_hit(sc, org, dirn, tmax=1.5)[0])
+        assert bool(pallas_any_hit(sc, org, dirn, tmin=3.0, tmax=6.0)[0])
+        assert not bool(pallas_any_hit(sc, org, dirn, tmin=3.0, tmax=4.0)[0])
+
+    def test_compacted_live_lanes_match(self):
+        """With an active mask (enough tiles for compaction to engage),
+        live lanes get exactly the uncompacted answers."""
+        from lucille_tpu.accel.pallas_isect import (
+            COMPACT_MIN_TILES,
+            TC,
+            pallas_any_hit,
+            pallas_closest_hit,
+        )
+
+        v0, v1, v2 = _random_soup(TC * COMPACT_MIN_TILES + 7, seed=65)
+        sc = _scene_from_tris(v0, v1, v2, "pallas")
+        org, dirn = _rays(333, seed=66)
+        live = np.random.default_rng(67).random(333) < 0.3
+        full = pallas_closest_hit(sc, org, dirn)
+        comp = pallas_closest_hit(sc, org, dirn, active=jnp.asarray(live))
+        np.testing.assert_array_equal(
+            np.asarray(full["hit"])[live], np.asarray(comp["hit"])[live]
+        )
+        np.testing.assert_array_equal(
+            np.asarray(full["tri"])[live], np.asarray(comp["tri"])[live]
+        )
+        occ_full = np.asarray(pallas_any_hit(sc, org, dirn))
+        occ_comp = np.asarray(
+            pallas_any_hit(sc, org, dirn, active=jnp.asarray(live))
+        )
+        np.testing.assert_array_equal(occ_full[live], occ_comp[live])
+
+    def test_empty_scene_never_hits(self):
+        from lucille_tpu.accel.pallas_isect import (
+            pallas_any_hit,
+            pallas_closest_hit,
+        )
+        from lucille_tpu.ri.types import SceneDescription
+        from lucille_tpu.scene.compile import compile_scene
+
+        desc = SceneDescription()
+        desc.options.accel_method = "pallas"
+        sc = compile_scene(desc).device_put()
+        assert sc.n_tris == 0 and sc.accel == "pallas"
+        org, dirn = _rays(70, seed=68)
+        assert not np.asarray(pallas_closest_hit(sc, org, dirn)["hit"]).any()
+        assert not np.asarray(pallas_any_hit(sc, org, dirn)).any()
 
 
 class TestUniformGrid:

@@ -1,5 +1,6 @@
-"""AO megakernel parity: the fused Pallas gather kernel must reproduce
-the unfused path exactly when fed the same stratified jitter."""
+"""AO gather kernel parity (interpret mode on the CPU): the fused Triton
+gather must reproduce the unfused path exactly when fed the same
+stratified jitter."""
 
 import numpy as np
 import pytest
@@ -79,9 +80,7 @@ def test_megakernel_matches_unfused(ntheta, nphi):
     hit = jnp.asarray(rng.uniform(size=B) < 0.8)
     key = jax.random.key(7)
 
-    occ = pallas_ao_occlusion(
-        sc, P, b0, b1, b2, hit, key, ntheta, nphi, interpret=True
-    )
+    occ = pallas_ao_occlusion(sc, P, b0, b1, b2, hit, key, ntheta, nphi)
     ref = _reference_occlusion(sc, P, b0, b1, b2, hit, key, ntheta, nphi)
     np.testing.assert_array_equal(np.asarray(occ), np.asarray(ref))
 
@@ -126,20 +125,18 @@ def test_ao_radiance_uses_megakernel_and_matches_scan():
 
 
 def test_megakernel_culled_paths_match(ntheta=4, nphi=4):
-    """A soup big enough (19 tiles, 2 supertiles) to compile in the
-    per-stratum slab cull and the supertile plane cull — exact parity
-    against the uncullable plain-JAX oracle proves the culls are
-    conservative."""
+    """A soup big enough (19 tiles) for the sorted lane order: exact
+    parity against the uncullable plain-JAX oracle proves the per-stratum
+    tile culls and the early exit are conservative."""
     from lucille_tpu.accel.pallas_ao import (
-        _STRATUM_CULL_MIN_TILES,
+        _SORT_MIN_TILES,
         TC_OCC,
         pallas_ao_occlusion,
     )
-    from lucille_tpu.accel.pallas_isect import SUPER
     from lucille_tpu.transport.ao import ortho_basis
 
-    ntris = TC_OCC * SUPER + 3 * TC_OCC  # 19 tiles -> 2 supertiles
-    assert ntris // TC_OCC >= _STRATUM_CULL_MIN_TILES
+    ntris = TC_OCC * 19 - 5  # not a tile multiple
+    assert ntris // TC_OCC >= _SORT_MIN_TILES
     v0, v1, v2 = _random_soup(ntris, seed=13)
     sc = _scene_from_tris(v0, v1, v2, "pallas")
     B = 512
@@ -151,12 +148,76 @@ def test_megakernel_culled_paths_match(ntheta=4, nphi=4):
     hit = jnp.asarray(rng.uniform(size=B) < 0.7)
     key = jax.random.key(17)
 
-    occ = pallas_ao_occlusion(
-        sc, P, b0, b1, b2, hit, key, ntheta, nphi, interpret=True
-    )
+    occ = pallas_ao_occlusion(sc, P, b0, b1, b2, hit, key, ntheta, nphi)
     ref = _reference_occlusion(sc, P, b0, b1, b2, hit, key, ntheta, nphi)
     np.testing.assert_array_equal(np.asarray(occ), np.asarray(ref))
     assert float(jnp.sum(occ)) > 0  # scene dense enough to occlude
+
+
+@pytest.mark.parametrize("B", [1, 130, 257])
+def test_ragged_wavefront_matches_oracle(B):
+    """Wavefronts that are not a multiple of AO_RAY_BLOCK are padded with
+    dead lanes that never reach the results."""
+    from lucille_tpu.accel.pallas_ao import pallas_ao_occlusion
+    from lucille_tpu.transport.ao import ortho_basis
+
+    v0, v1, v2 = _random_soup(150, seed=6, spread=2.0, size=0.8)
+    sc = _scene_from_tris(v0, v1, v2, "pallas")
+    rng = np.random.default_rng(B)
+    P = jnp.asarray(rng.uniform(-2, 2, (B, 3)), jnp.float32)
+    N = rng.normal(size=(B, 3))
+    N /= np.linalg.norm(N, axis=-1, keepdims=True)
+    b0, b1, b2 = ortho_basis(jnp.asarray(N, jnp.float32))
+    hit = jnp.ones((B,), bool)
+    key = jax.random.key(B)
+    occ = pallas_ao_occlusion(sc, P, b0, b1, b2, hit, key, 2, 2)
+    ref = _reference_occlusion(sc, P, b0, b1, b2, hit, key, 2, 2)
+    np.testing.assert_array_equal(np.asarray(occ), np.asarray(ref))
+
+
+def test_no_hit_lanes_report_zero():
+    """An all-miss eye wavefront: every program is past the hit count and
+    skips all work; counts are zero."""
+    from lucille_tpu.accel.pallas_ao import pallas_ao_occlusion_bits
+    from lucille_tpu.transport.ao import ortho_basis
+
+    v0, v1, v2 = _random_soup(100, seed=7)
+    sc = _scene_from_tris(v0, v1, v2, "pallas")
+    B = 100
+    P = jnp.zeros((B, 3), jnp.float32)
+    b0, b1, b2 = ortho_basis(jnp.tile(jnp.asarray([[0.0, 1.0, 0.0]]), (B, 1)))
+    occ, bits, _u = pallas_ao_occlusion_bits(
+        sc, P, b0, b1, b2, jnp.zeros((B,), bool), jax.random.key(0), 4, 4
+    )
+    assert not np.asarray(occ).any()
+    assert not np.asarray(bits).any()
+
+
+def test_unit_sky_reduces_to_plain_ao():
+    """pallas_ao_sky with sky_rgb == 1 counts the unoccluded strata of
+    the same launch: col = (nsamples - occ) on every hit lane."""
+    from lucille_tpu.accel.pallas_ao import pallas_ao_occlusion, pallas_ao_sky
+    from lucille_tpu.transport.ao import ortho_basis
+
+    class UnitSky:
+        def sky_rgb(self, d):
+            return jnp.ones((d.shape[0], 3), jnp.float32)
+
+    v0, v1, v2 = _random_soup(300, seed=9)
+    sc = _scene_from_tris(v0, v1, v2, "pallas")
+    B = 200
+    rng = np.random.default_rng(8)
+    P = jnp.asarray(rng.uniform(-4, 4, (B, 3)), jnp.float32)
+    N = rng.normal(size=(B, 3))
+    N /= np.linalg.norm(N, axis=-1, keepdims=True)
+    b0, b1, b2 = ortho_basis(jnp.asarray(N, jnp.float32))
+    hit = jnp.asarray(rng.uniform(size=B) < 0.75)
+    key = jax.random.key(4)
+    occ = pallas_ao_occlusion(sc, P, b0, b1, b2, hit, key, 8, 8)
+    col = pallas_ao_sky(sc, P, b0, b1, b2, hit, key, 8, 8, UnitSky())
+    expect = (64.0 - np.asarray(occ)) * np.asarray(hit)
+    for c in range(3):
+        np.testing.assert_array_equal(np.asarray(col)[:, c], expect)
 
 
 def test_occlusion_bits_match_counts():
@@ -179,10 +240,9 @@ def test_occlusion_bits_match_counts():
     hit = jnp.asarray(rng.uniform(size=B) < 0.7)
     key = jax.random.key(3)
 
-    occ = pallas_ao_occlusion(sc, P, b0, b1, b2, hit, key, 8, 8,
-                              interpret=True)
+    occ = pallas_ao_occlusion(sc, P, b0, b1, b2, hit, key, 8, 8)
     occ2, bits, u01 = pallas_ao_occlusion_bits(
-        sc, P, b0, b1, b2, hit, key, 8, 8, interpret=True
+        sc, P, b0, b1, b2, hit, key, 8, 8
     )
     np.testing.assert_array_equal(np.asarray(occ), np.asarray(occ2))
     b = np.asarray(bits).astype(np.uint32)

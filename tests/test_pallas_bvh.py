@@ -1,5 +1,6 @@
 """Tile-BVH (accel/pallas_bvh.py) tests: host build invariants and
-kernel parity against oracles, all in interpret mode on CPU."""
+packet-walk kernel parity against oracles (interpret mode on the CPU),
+plus the plain per-ray walks (accel/traverse.py) they are timed against."""
 
 import numpy as np
 import pytest
@@ -40,9 +41,11 @@ class TestTileBVHBuild:
 
         v0, v1, v2 = _random_soup(1000, seed=1)
         src, nbox, nmeta, m = build_tile_bvh(v0, v1, v2)
+        from lucille_tpu.accel.pallas_bvh import TC
+
         real = src[src >= 0]
         assert sorted(real.tolist()) == list(range(1000))
-        assert len(src) % 128 == 0
+        assert len(src) % TC == 0
 
     def test_skip_walk_visits_every_node(self):
         from lucille_tpu.accel.pallas_bvh import build_tile_bvh
@@ -70,14 +73,20 @@ class TestTileBVHBuild:
         for a, e in spans:
             assert a == pos
             pos = e
-        assert pos * 128 == len(src)
+        from lucille_tpu.accel.pallas_bvh import TC
 
-    def test_node_budget_respected_by_leaf_growth(self):
+        assert pos * TC == len(src)
+
+    def test_each_leaf_is_one_tile(self):
+        """Leaves hold at most TC triangles, so every leaf visit is one
+        dense tile test; no node budget grows them."""
         from lucille_tpu.accel.pallas_bvh import build_tile_bvh
 
         v0, v1, v2 = _random_soup(5000, seed=4)
-        src, nbox, nmeta, m = build_tile_bvh(v0, v1, v2, node_budget=64)
-        assert m <= 64
+        src, nbox, nmeta, m = build_tile_bvh(v0, v1, v2)
+        count = nmeta[2]
+        assert set(np.unique(count[count > 0]).tolist()) == {1}
+        assert m > 5000 // 16  # no leaf-size doubling
 
 
 class TestAOKernelParity:
@@ -86,12 +95,12 @@ class TestAOKernelParity:
         occlusion oracle with the SAME per-lane CP-rotated jitter
         replicated in plain JAX (the cone path draws its uniforms on the
         unsorted padded wavefront, _stratified_dirs)."""
-        from lucille_tpu.accel.pallas_bvh import (
+        from lucille_tpu.accel.pallas_ao import (
             _R2_A1,
             _R2_A2,
-            pallas_bvh_ao_occlusion,
+            occlusion_test_reference,
         )
-        from lucille_tpu.accel.pallas_ao import occlusion_test_reference
+        from lucille_tpu.accel.pallas_bvh import pallas_bvh_ao_occlusion
         from lucille_tpu.transport.ao import ortho_basis
 
         v0, v1, v2 = _random_soup(900, seed=5)
@@ -113,11 +122,9 @@ class TestAOKernelParity:
         # cone path: padded arrays; uniforms drawn at the TRUE wavefront
         # width (pad-independent stream) and zero-padded like
         # _stratified_dirs(nreal=B)
-        from lucille_tpu.accel.pallas_bvh import (
-            _ah_block, _scene_npad, _use_hbm,
-        )
+        from lucille_tpu.accel.pallas_bvh import RAY_BLOCK
 
-        Bpad = max(_ah_block(_use_hbm(_scene_npad(sc))), 256)
+        Bpad = -(-B // RAY_BLOCK) * RAY_BLOCK
         hit_w = jnp.zeros((Bpad,), hit.dtype).at[:B].set(hit)
         pad3 = lambda a: jnp.zeros((Bpad, 3), a.dtype).at[:B].set(a)
         Pp, b0p, b1p, b2p = pad3(P), pad3(b0), pad3(b1), pad3(b2)
@@ -180,57 +187,115 @@ class TestAOKernelParity:
             assert diff.mean() < 0.15  # MC noise at 16 samples
 
 
-class TestHBMStreaming:
-    """Forced HBM tile-streaming parity (ADVICE r2): the organic trigger
-    needs >MAX_TRIS_VMEM triangles, never built in CI, so force the path
-    with hbm=True and compare against the VMEM-resident kernels."""
+def _rays(B, seed=21):
+    rng = np.random.default_rng(seed)
+    org = jnp.asarray(rng.uniform(-8, 8, (B, 3)), jnp.float32)
+    d = rng.normal(size=(B, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return org, jnp.asarray(d, jnp.float32)
 
-    def _rays(self, B, seed=21):
-        rng = np.random.default_rng(seed)
-        org = jnp.asarray(rng.uniform(-8, 8, (B, 3)), jnp.float32)
-        d = rng.normal(size=(B, 3))
-        d /= np.linalg.norm(d, axis=-1, keepdims=True)
-        return org, jnp.asarray(d, jnp.float32)
 
-    def test_anyhit_parity_hbm(self):
-        from lucille_tpu.accel.pallas_bvh import _pallas_bvh_any_hit
+@pytest.fixture(params=[32, 64, 128])
+def bvh_ray_block(request, monkeypatch):
+    """Run a test at several packet widths (the constant is read when the
+    kernel is traced, so compiled traces of other widths are dropped)."""
+    from lucille_tpu.accel import pallas_bvh
 
-        v0, v1, v2 = _random_soup(800, seed=13)
+    monkeypatch.setattr(pallas_bvh, "RAY_BLOCK", request.param)
+    jax.clear_caches()
+    yield request.param
+    jax.clear_caches()
+
+
+class TestPacketWalkParity:
+    """The packet walks against the brute-force oracle at several packet
+    widths, on wavefronts that are not a multiple of the width."""
+
+    def test_closest_matches_bruteforce(self, bvh_ray_block):
+        from lucille_tpu.accel.bruteforce import brute_closest_hit
+        from lucille_tpu.accel.pallas_bvh import pallas_bvh_closest_hit
+
+        v0, v1, v2 = _random_soup(500, seed=31)
         sc = _scene(v0, v1, v2, "bvh")
-        org, dirn = self._rays(256)
-        occ_v, _ = _pallas_bvh_any_hit(sc, org, dirn, None, True, False)
-        occ_h, _ = _pallas_bvh_any_hit(sc, org, dirn, None, True, True)
-        np.testing.assert_array_equal(np.asarray(occ_v), np.asarray(occ_h))
-
-    def test_closest_parity_hbm(self):
-        from lucille_tpu.accel.pallas_bvh import _pallas_bvh_closest_hit
-
-        v0, v1, v2 = _random_soup(800, seed=14)
-        sc = _scene(v0, v1, v2, "bvh")
-        org, dirn = self._rays(256, seed=22)
-        rv = _pallas_bvh_closest_hit(sc, org, dirn, None, True, False)
-        rh = _pallas_bvh_closest_hit(sc, org, dirn, None, True, True)
-        np.testing.assert_array_equal(np.asarray(rv["hit"]), np.asarray(rh["hit"]))
-        np.testing.assert_allclose(
-            np.asarray(rv["t"]), np.asarray(rh["t"]), rtol=1e-6
+        org, dirn = _rays(300, seed=32)
+        r1 = brute_closest_hit(sc, org, dirn)
+        r2 = pallas_bvh_closest_hit(sc, org, dirn)
+        h = np.asarray(r1["hit"])
+        np.testing.assert_array_equal(h, np.asarray(r2["hit"]))
+        np.testing.assert_array_equal(
+            np.asarray(r1["tri"])[h], np.asarray(r2["tri"])[h]
         )
-        np.testing.assert_array_equal(np.asarray(rv["tri"]), np.asarray(rh["tri"]))
+        np.testing.assert_allclose(
+            np.asarray(r1["t"])[h], np.asarray(r2["t"])[h], rtol=1e-5
+        )
+        assert float(r2["ntrav"]) > 0
 
-    def test_env_flag_forces_streaming(self, monkeypatch):
-        """LUCILLE_BVH_HBM=1 must reach the streaming path through the
-        public wrapper (regression: env used to be read at trace time
-        inside jit, so a flipped flag could hit a stale cache)."""
-        from lucille_tpu.accel import pallas_bvh
+    def test_any_hit_matches_bruteforce(self, bvh_ray_block):
+        from lucille_tpu.accel.bruteforce import brute_any_hit
+        from lucille_tpu.accel.pallas_bvh import pallas_bvh_any_hit
 
-        monkeypatch.setenv("LUCILLE_BVH_HBM", "1")
-        assert pallas_bvh._use_hbm(128) is True
-        v0, v1, v2 = _random_soup(400, seed=15)
+        v0, v1, v2 = _random_soup(500, seed=33)
         sc = _scene(v0, v1, v2, "bvh")
-        org, dirn = self._rays(256, seed=23)
-        occ_h = pallas_bvh.pallas_bvh_any_hit(sc, org, dirn, interpret=True)
-        monkeypatch.delenv("LUCILLE_BVH_HBM")
-        occ_v = pallas_bvh.pallas_bvh_any_hit(sc, org, dirn, interpret=True)
-        np.testing.assert_array_equal(np.asarray(occ_h), np.asarray(occ_v))
+        org, dirn = _rays(300, seed=34)
+        tmax = jnp.asarray(np.random.default_rng(35).uniform(1, 12, 300),
+                           jnp.float32)
+        np.testing.assert_array_equal(
+            np.asarray(brute_any_hit(sc, org, dirn, tmax=tmax)),
+            np.asarray(pallas_bvh_any_hit(sc, org, dirn, tmax=tmax)),
+        )
+
+
+class TestPlainWalk:
+    """accel/traverse.py's per-ray walks: the XLA baseline of the packet
+    walks must answer exactly what brute force answers."""
+
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_walk_closest_matches_bruteforce(self, seed):
+        from lucille_tpu.accel.bruteforce import brute_closest_hit
+        from lucille_tpu.accel.traverse import walk_closest_hit
+
+        v0, v1, v2 = _random_soup(400, seed=40 + seed)
+        sc = _scene(v0, v1, v2, "bvh")
+        org, dirn = _rays(256, seed=50 + seed)
+        r1 = brute_closest_hit(sc, org, dirn)
+        r2 = walk_closest_hit(sc, org, dirn)
+        h = np.asarray(r1["hit"])
+        np.testing.assert_array_equal(h, np.asarray(r2["hit"]))
+        np.testing.assert_array_equal(
+            np.asarray(r1["tri"])[h], np.asarray(r2["tri"])[h]
+        )
+
+    def test_walk_any_hit_matches_bruteforce(self):
+        from lucille_tpu.accel.bruteforce import brute_any_hit
+        from lucille_tpu.accel.traverse import walk_any_hit
+
+        v0, v1, v2 = _random_soup(400, seed=42)
+        sc = _scene(v0, v1, v2, "bvh")
+        org, dirn = _rays(256, seed=52)
+        for tmax in (None, 3.0):
+            np.testing.assert_array_equal(
+                np.asarray(brute_any_hit(sc, org, dirn, tmax=tmax)),
+                np.asarray(walk_any_hit(sc, org, dirn, tmax=tmax)),
+            )
+
+    def test_walk_tag_routes_through_dispatch(self):
+        """A tile-BVH scene retagged "walk" answers through the per-ray
+        walk — the plain frame the packet walks are measured against."""
+        import dataclasses
+
+        from lucille_tpu.accel.dispatch import any_hit, closest_hit
+
+        v0, v1, v2 = _random_soup(300, seed=43)
+        sc = _scene(v0, v1, v2, "bvh")
+        sw = dataclasses.replace(sc, accel="walk")
+        org, dirn = _rays(128, seed=53)
+        np.testing.assert_array_equal(
+            np.asarray(closest_hit(sc, org, dirn)["hit"]),
+            np.asarray(closest_hit(sw, org, dirn)["hit"]),
+        )
+        np.testing.assert_array_equal(
+            np.asarray(any_hit(sc, org, dirn)), np.asarray(any_hit(sw, org, dirn))
+        )
 
 
 class TestWindowSemantics:
@@ -260,19 +325,36 @@ class TestWindowSemantics:
         assert bool(r["hit"][0]) and abs(float(r["t"][0]) - 2.0) < 1e-4
         r = pallas_bvh_closest_hit(sc, org, dirn, tmax=1.0)
         assert not bool(r["hit"][0])
+        # tmin skips the nearer triangle
+        r = pallas_bvh_closest_hit(sc, org, dirn, tmin=3.0)
+        assert bool(r["hit"][0]) and abs(float(r["t"][0]) - 5.0) < 1e-4
+
+    def test_all_miss_wavefront(self):
+        from lucille_tpu.accel.pallas_bvh import (
+            pallas_bvh_any_hit,
+            pallas_bvh_closest_hit,
+        )
+
+        v0, v1, v2 = _random_soup(200, seed=44)
+        sc = _scene(v0, v1, v2, "bvh")
+        B = 70
+        org = jnp.broadcast_to(jnp.asarray([0.0, 50.0, 0.0]), (B, 3))
+        dirn = jnp.broadcast_to(jnp.asarray([0.0, 1.0, 0.0]), (B, 3))
+        assert not np.asarray(pallas_bvh_closest_hit(sc, org, dirn)["hit"]).any()
+        assert not np.asarray(pallas_bvh_any_hit(sc, org, dirn)).any()
 
 
 class TestConeTiledSunsky:
     def test_unit_sky_reduces_to_plain_ao(self):
-        """pallas_bvh_ao_sunsky with sky_rgb == 1 must reproduce the
-        plain cone-tiled occlusion EXACTLY (same kernel, same streams):
+        """pallas_bvh_ao_sky with sky_rgb == 1 must reproduce the plain
+        cone-tiled occlusion EXACTLY (same kernel, same streams):
         col = (nsamples - occ) on every hit lane."""
         import jax
         import jax.numpy as jnp
 
         from lucille_tpu.accel.pallas_bvh import (
             pallas_bvh_ao_occlusion,
-            pallas_bvh_ao_sunsky,
+            pallas_bvh_ao_sky,
         )
         from lucille_tpu.transport.ao import ortho_basis
 
@@ -291,12 +373,8 @@ class TestConeTiledSunsky:
         hit = jnp.asarray(rng.uniform(size=B) < 0.75)
         key = jax.random.key(2)
 
-        occ, _ = pallas_bvh_ao_occlusion(
-            sc, P, b0, b1, b2, hit, key, 8, 8, interpret=True
-        )
-        col, _ = pallas_bvh_ao_sunsky(
-            sc, P, b0, b1, b2, hit, key, 8, 8, UnitSky(), interpret=True
-        )
+        occ, _ = pallas_bvh_ao_occlusion(sc, P, b0, b1, b2, hit, key, 8, 8)
+        col = pallas_bvh_ao_sky(sc, P, b0, b1, b2, hit, key, 8, 8, UnitSky())
         expect = (64.0 - np.asarray(occ)) * np.asarray(hit)
         for c in range(3):
             np.testing.assert_array_equal(np.asarray(col)[:, c], expect)

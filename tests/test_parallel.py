@@ -42,6 +42,16 @@ class TestMesh:
         mesh = make_mesh(8)
         assert mesh.devices.size == 8
 
+    def test_make_mesh_raises_with_too_few_devices(self):
+        """No silent swap to another backend's devices: asking for more
+        devices than exist is an error."""
+        from lucille_tpu.parallel.mesh import make_mesh
+
+        with pytest.raises(ValueError, match="need 16 devices"):
+            make_mesh(16)
+        with pytest.raises(ValueError):
+            make_mesh(4, devices=jax.devices()[:2])
+
     def test_sharded_render_matches_single_device(self):
         from lucille_tpu.parallel.mesh import make_mesh, render_frame_sharded
 
@@ -65,7 +75,7 @@ class TestMesh:
 
 
 class TestUnifiedRenderer:
-    """The mesh path IS the production Renderer (VERDICT r1 item 2): same
+    """The mesh path IS the production Renderer: same
     tile kernel, so mesh and no-mesh frames must be bit-identical."""
 
     def _render(self, method, mesh=None, **render_kwargs):
@@ -127,6 +137,36 @@ class TestUnifiedRenderer:
         np.testing.assert_array_equal(img_full, img_rec)
         assert not os.path.exists(ckpt)  # completed frame removes it
 
+    @pytest.mark.parametrize(
+        "n_gpus,pid,want", [(4, 5, [1]), (4, 0, [0]), (1, 3, None), (0, 1, None)]
+    )
+    def test_one_card_per_process(self, monkeypatch, n_gpus, pid, want):
+        """Processes sharing a host each claim one card, chosen from the
+        process id; a one-card (or CPU) host passes no restriction."""
+        from lucille_tpu.parallel import distributed
+
+        seen = {}
+        monkeypatch.setattr(distributed, "_local_gpu_count", lambda: n_gpus)
+        monkeypatch.setattr(
+            jax.distributed, "initialize", lambda **kw: seen.update(kw)
+        )
+        try:
+            assert distributed.initialize_distributed(
+                "localhost:1234", 8, pid
+            )
+        finally:
+            distributed._initialized = False
+        assert seen.get("local_device_ids") == want
+        assert seen["process_id"] == pid and seen["num_processes"] == 8
+
+    def test_visible_gpu_count_from_env(self, monkeypatch):
+        from lucille_tpu.parallel import distributed
+
+        monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0,2, 3")
+        assert distributed._local_gpu_count() == 3
+        monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+        assert distributed._local_gpu_count() == 0
+
     def test_distributed_single_process_noop(self):
         from lucille_tpu.parallel.distributed import (
             barrier,
@@ -147,7 +187,7 @@ class TestDistributedRecover:
     broadcasts (image, alpha, done) so every process skips IDENTICAL
     tiles (renderer.py broadcast branch; MPI_Bcast analog parallel.c:150).
     Simulated without a pod by monkeypatching process_count/index and
-    capture/replay of broadcast_from_primary (VERDICT r3 item 9)."""
+    capture/replay of broadcast_from_primary."""
 
     def test_all_processes_skip_same_tiles(self, tmp_path, monkeypatch):
         import os

@@ -67,6 +67,34 @@ class TestAOParity:
         assert diff.max() < 0.12, f"max diff {diff.max():.4f}"
 
 
+AO_SCENE = os.path.join(os.path.dirname(GOLDEN), "..", "scenes",
+                        "ao_objects.rib")
+
+
+class TestInRepoAOScene:
+    def test_deterministic_and_lit(self):
+        """scenes/ao_objects.rib renders the same pixels twice for one
+        key, with occlusion (not all 1) on a lit, non-empty frame."""
+        from lucille_tpu.render.renderer import Renderer
+        from lucille_tpu.ri.api import RiState
+        from lucille_tpu.rib.parser import parse_rib_file
+
+        def render():
+            s = RiState()
+            parse_rib_file(AO_SCENE, s)
+            s.Format(40, 30)
+            s.options.gather_nsamples = 4
+            s.options.current_display().sampling_rates = (1.0, 1.0)
+            return Renderer(s.scene, tile_size=16).render_frame()
+
+        a, b = render(), render()
+        np.testing.assert_array_equal(a, b)
+        assert np.isfinite(a).all()
+        lit = a[..., 0][a[..., 0] > 0]
+        assert 0.2 < (a[..., 0] > 0).mean() < 0.7  # the scene is framed
+        assert lit.min() < 1.0  # some gather rays are occluded
+
+
 PS_RIB = "/root/reference/examples/plane_sphere/Scene_DEFAULT_Set0.rib"
 
 
@@ -225,7 +253,7 @@ class TestCheckpointResume:
 class TestCropWindow:
     def test_crop_matches_full_render_subwindow(self):
         """CropWindow pixels are bit-identical to the full render's same
-        pixels; everything outside stays black (VERDICT r1 gap #6)."""
+        pixels; everything outside stays black."""
         from lucille_tpu.render.renderer import Renderer
         from lucille_tpu.ri.api import RiState
         from lucille_tpu.rib.parser import parse_rib

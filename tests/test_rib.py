@@ -193,21 +193,26 @@ class TestReferenceScenes:
         assert re.search("Unknown RIB command: TheWorld", out)
 
     def test_ambient_occlusion_scene(self):
+        """The in-repo AO scene: ground + two spheres + three boxes at
+        lucille's default 640x480, 3x3 samples, 64 gather rays."""
         import os
 
-        path = "/root/reference/examples/ambient_occlusion/ambient_occlusion.rib"
-        if not os.path.exists(path):
-            pytest.skip("reference scenes unavailable")
+        path = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "scenes", "ao_objects.rib",
+        )
         s = RiState()
         from lucille_tpu.rib.parser import parse_rib_file
 
         parse_rib_file(path, s)
         sc = s.scene
-        assert len(sc.geoms) == 4
-        assert sc.ntriangles == 322
+        assert len(sc.geoms) == 6
+        assert sc.ntriangles == 1796
         assert s.camera.camera_projection == "perspective"
         assert s.camera.fov == 45.0
         assert s.camera.is_rh
+        assert (sc.options.width, sc.options.height) == (640, 480)
+        assert sc.options.gather_nsamples == 64
         d = sc.options.current_display()
         assert d.sampling_rates == (3.0, 3.0)
-        assert d.name == "ambient_occlusion.hdr"
+        assert d.name == "ao_objects.hdr"

@@ -321,7 +321,7 @@ class TestShadedIntegrator:
     def test_trace_builtin_mirror_reflects_plane(self):
         """Surface "mirror" through the SHADER method renders non-black:
         ctx.trace() recursively shades the reflected wavefront
-        (shader.c:895-925 parity — VERDICT r1 gap #4)."""
+        (shader.c:895-925 parity)."""
         from lucille_tpu.transport.shaded import (
             build_shader_table,
             shaded_radiance,
